@@ -1,0 +1,589 @@
+"""The microgrid engine on torch tensors.
+
+Port of :mod:`pymgrid_tpu.core.engine`.  ``make_step_fn(spec)`` builds
+
+    step(params, state, action) -> (new_state, StepOutput)
+
+reproducing the host :meth:`Microgrid.run` three-phase dispatch with the same
+module order, the same balance summation trees
+(:func:`~pymgrid_tpu.core.numpy_sum.numpy_sum_compat`) and the same clipping
+and cost semantics (:mod:`pymgrid_tpu.core.physics`, run through the torch
+namespace :mod:`pymgrid_tpu_torch.core.xp`).
+
+Batching is written out: ``params`` leaves carry a leading config axis
+``(C, ...)``, state and action leaves ``(C, B, ...)`` (configs x replicas), and
+per-config constants broadcast as ``(C, 1)``.  ``state["step"]`` may also be
+``(C, 1)``: every replica of a config then shares the simulated time (the
+lockstep sweep), and time-dependent rows are read once per config.  One step
+function thus serves the single-config rollouts, the lockstep sweep and the
+suite.
+
+Eager PyTorch removes no dead code, so the step builds the observation and the
+log row only when asked (``with_obs`` / ``with_log``); rewards-only loops skip
+both.  Out-of-range step indices clamp, as ``lax.dynamic_slice`` does.
+"""
+from typing import Any, NamedTuple
+
+import torch
+
+from pymgrid_tpu.core import physics
+from pymgrid_tpu.core.numpy_sum import numpy_sum_compat
+from pymgrid_tpu.core.tables import (
+    logfc_table_layout,
+    obs_table_layout,
+    row_table_layout,
+    tabulable,
+)
+from pymgrid_tpu_torch._device import torch_dtype
+from pymgrid_tpu_torch.core import xp
+
+__all__ = [
+    "StepOutput",
+    "make_step_fn",
+    "make_reset_fn",
+    "ts_obs_part",
+    "gather_rows",
+    "slot_param",
+    "check_supported",
+]
+
+_FOLLOW_UP = "ROADMAP.md A14 (engine surfaces after the first slice)"
+
+
+class StepOutput(NamedTuple):
+    obs: Any           # (C, B, obs_dim) normalized observation, or None
+    reward: Any        # (C, B) summed module reward
+    shaped_reward: Any # (C, B) (== reward: reward shapers are not ported yet)
+    done: Any          # (C, B) bool
+    log_row: Any       # (C, B, n_log_fields) per-step log record, or None
+    provided: Any      # (C, B) overall provided energy
+    absorbed: Any      # (C, B) overall absorbed energy
+
+
+def check_supported(spec):
+    """Raise for the engine surfaces this port does not cover yet."""
+    for ref in spec.log_order:
+        if ref.forecaster == "gaussian" and not spec.numpy_noise:
+            raise NotImplementedError(
+                f"({ref.name}, {ref.num}): jax-PRNG gaussian forecasts are not "
+                f"ported; build with numpy_rng_noise=True or see {_FOLLOW_UP}"
+            )
+        if ref.forecaster == "user":
+            raise NotImplementedError(
+                f"({ref.name}, {ref.num}): traced user forecaster callables are "
+                f"not ported; see {_FOLLOW_UP}"
+            )
+        if ref.custom_fn is not None:
+            raise NotImplementedError(
+                f"({ref.name}, {ref.num}): custom battery/genset callables are "
+                f"not ported; see {_FOLLOW_UP}"
+            )
+    if spec.shaper is not None:
+        raise NotImplementedError(
+            f"reward shaper {spec.shaper!r} is not ported; see {_FOLLOW_UP}"
+        )
+    for ref in spec.fixed:
+        if ref.kind != "load":
+            raise NotImplementedError(f"fixed-phase kind {ref.kind} unsupported")
+    for ref in spec.controllable:
+        if ref.kind not in ("battery", "genset", "grid"):
+            raise NotImplementedError(f"controllable-phase kind {ref.kind} unsupported")
+    for ref in spec.flex:
+        if ref.kind not in ("renewable", "balancing"):
+            raise NotImplementedError(f"flex-phase kind {ref.kind} unsupported")
+
+
+def slot_param(x, i):
+    """Slot ``i`` of a ``(C, n, ...)`` param as ``(C, 1, ...)``."""
+    return x[:, i].unsqueeze(1)
+
+
+def _config_index(table, ndim):
+    return torch.arange(table.shape[0], device=table.device).view(
+        (-1,) + (1,) * (ndim - 1)
+    )
+
+
+def gather_rows(table, t):
+    """``table (C, T, ...)`` at per-config-and-replica steps ``t (C, B)`` ->
+    ``(C, B, ...)``; ``t`` clamps into ``[0, T - 1]`` like
+    ``lax.dynamic_index_in_dim``."""
+    idx = t.long().clamp(0, table.shape[1] - 1)
+    return table[_config_index(table, idx.dim()), idx]
+
+
+def _gather_window(table, start, h):
+    """``h`` consecutive rows of ``table (C, T, ...)`` from ``start (C, B)``
+    -> ``(C, B, h, ...)``; the start clamps so the window fits, as
+    ``lax.dynamic_slice`` clamps."""
+    start = start.long().clamp(0, table.shape[1] - h)
+    idx = start.unsqueeze(-1) + torch.arange(h, device=table.device)
+    return table[_config_index(table, idx.dim()), idx]
+
+
+def _gaussian_refs(spec, kind):
+    return [m for m in spec.log_order if m.kind == kind and m.forecaster == "gaussian"]
+
+
+def _off_end_mask(ref, t, h):
+    """``(C, B, h, 1)`` mask of forecast rows that lie inside the data."""
+    n_real = (ref.ts_length - 1 - t.long()).clamp(0, h)
+    return (torch.arange(h, device=t.device) < n_real.unsqueeze(-1)).unsqueeze(-1)
+
+
+def _obs_bounds(params, ref):
+    p = params[ref.kind]
+    return (slot_param(p["obs_low"], ref.slot).unsqueeze(2),
+            slot_param(p["obs_high"], ref.slot).unsqueeze(2))
+
+
+def _oracle_window(params, ref, t):
+    """Deterministic forecast window at ``t``: ``(C, B, h, f)``."""
+    ts_slot = params[ref.kind]["ts"][:, ref.slot]
+    return _gather_window(ts_slot, t + 1, ref.forecast_horizon)
+
+
+def _numpy_noise_window(spec, params, ref, t):
+    """Gaussian forecast from the precomputed numpy-RNG noise bank."""
+    h = ref.forecast_horizon
+    gslot = [m.slot for m in _gaussian_refs(spec, ref.kind)].index(ref.slot)
+    window = _oracle_window(params, ref, t)
+    noise = gather_rows(params[ref.kind]["np_noise"][:, gslot], t)[..., :h, :]
+    window = window + noise * _off_end_mask(ref, t, h)
+    low, high = _obs_bounds(params, ref)
+    return torch.clamp(window, low, high)
+
+
+def _user_bank_window(params, ref, t):
+    """Stochastic user forecast replayed from the realization bank."""
+    h = ref.forecast_horizon
+    window = _oracle_window(params, ref, t)
+    raw = gather_rows(params[ref.kind]["user_bank"][:, ref.slot], t)[..., :h, :]
+    out = torch.where(_off_end_mask(ref, t, h), raw, window)
+    low, high = _obs_bounds(params, ref)
+    return torch.clamp(out, low, high)
+
+
+def realized_forecast(spec, params, ref, t):
+    """Forecast window of ``ref`` valid at step ``t``, ``(C, B, h, f)``, or
+    ``None`` without a horizon.  Every ported forecaster is a pure function
+    of ``t``."""
+    if ref.forecast_horizon == 0:
+        return None
+    if ref.forecaster == "gaussian":
+        return _numpy_noise_window(spec, params, ref, t)
+    if ref.forecaster == "user_bank":
+        return _user_bank_window(params, ref, t)
+    return _oracle_window(params, ref, t)
+
+
+def _ts_row(params, kind, slot, t):
+    return gather_rows(params[kind]["ts"][:, slot], t)
+
+
+def ts_obs_part(spec, params, t, ref):
+    """Normalized observation segment of one ts module at step ``t``:
+    current row + forecast window, ``(C, B, obs_dim)``.  Also the row
+    generator of :func:`pymgrid_tpu_torch.core.tables.build_tables`, so
+    table lookups equal this expression by construction."""
+    row = _ts_row(params, ref.kind, ref.slot, t)
+    low = slot_param(params[ref.kind]["obs_low"], ref.slot)
+    spread = slot_param(params[ref.kind]["obs_spread"], ref.slot)
+    vals = [(row - low) / spread]
+    if ref.forecast_horizon > 0:
+        fc = realized_forecast(spec, params, ref, t)
+        vals.append(
+            ((fc - low.unsqueeze(2)) / spread.unsqueeze(2)).flatten(-2)
+        )
+    return torch.cat(vals, dim=-1)
+
+
+def make_reset_fn(spec):
+    """Build ``reset(params, initial_step) -> state``.
+
+    ``initial_step`` is a ``(C, B)`` integer tensor of episode starts (the
+    caller's randomized starts, or ``params["initial_step"]`` broadcast);
+    it also fixes the replica count ``B``.  State leaves are ``(C, B, ...)``;
+    step and genset counters are int32.
+    """
+
+    def reset(params, initial_step):
+        t0 = initial_step.to(torch.int32)
+        C, B = t0.shape
+        pg = params["genset"]
+        init_status = pg["init_status"].to(torch.int32)
+        on = init_status == 1
+        zero = torch.zeros_like(init_status)
+
+        def per_replica(x):
+            return x.unsqueeze(1).expand(C, B, x.shape[-1]).contiguous()
+
+        return {
+            "step": t0,
+            "battery_charge": per_replica(params["battery"]["init_charge"]),
+            "genset": {
+                "current_status": per_replica(init_status),
+                "goal_status": per_replica(init_status),
+                "steps_until_up": per_replica(
+                    torch.where(on, zero, pg["start_up_time"].to(torch.int32))
+                ),
+                "steps_until_down": per_replica(
+                    torch.where(on, pg["wind_down_time"].to(torch.int32), zero)
+                ),
+            },
+            "forecast": {},
+        }
+
+    return reset
+
+
+def make_step_fn(spec, normalized=False, with_obs=True, with_log=True):
+    """Build the engine step for ``spec`` (see the module docstring).
+
+    ``normalized``: incoming actions are in [0, 1] and are denormalized
+    (genset goal entries never are).  ``with_obs`` / ``with_log``: build the
+    outgoing observation / log row; ``StepOutput.obs`` / ``.log_row`` are
+    ``None`` otherwise.  Observation segments follow container (log) order.
+    """
+    check_supported(spec)
+    dtype = torch_dtype(spec.dtype)
+    row_layout, row_width = row_table_layout(spec)
+    logfc_layout, _ = logfc_table_layout(spec)
+
+    def ts_done(params, kind, slot, t):
+        return t >= slot_param(params[kind]["final_step"], slot) - 1
+
+    def step(params, state, action):
+        t = state["step"]
+        batch = torch.broadcast_shapes(t.shape, state["battery_charge"].shape[:-1])
+        zero = torch.zeros((), dtype=dtype, device=t.device)
+        provided, absorbed, rewards, dones = [], [], [], []
+        log_vals = {}
+
+        table_row = None
+        if "step_table" in params:
+            table_row = gather_rows(params["step_table"], t)
+        logfc_row = None
+        if with_log and "logfc_table" in params:
+            logfc_row = gather_rows(params["logfc_table"], t)
+
+        def cur_row(kind, slot):
+            if table_row is not None:
+                off, width = row_layout[(kind, slot)]
+                return table_row[..., off : off + width]
+            return _ts_row(params, kind, slot, t)
+
+        def log_forecast(lv, ref):
+            if ref.forecast_horizon == 0:
+                return
+            if logfc_row is not None and (ref.name, ref.num) in logfc_layout:
+                off, width = logfc_layout[(ref.name, ref.num)]
+                window = logfc_row[..., off : off + width].unflatten(
+                    -1, (ref.forecast_horizon, ref.n_features)
+                )
+            else:
+                window = realized_forecast(spec, params, ref, t)
+            current = [f for f in ref.log_fields if f.endswith("_current")]
+            components = [f[: -len("_current")] for f in current]
+            for j in range(ref.forecast_horizon):
+                for c_idx, comp in enumerate(components):
+                    lv[f"{comp}_forecast_{j}"] = window[..., j, c_idx]
+
+        # --------------------------------------------------- phase 1: fixed
+        for ref in spec.fixed:
+            row = cur_row("load", ref.slot)
+            load_met = -row[..., 0]
+            absorbed.append(load_met)
+            rewards.append(zero)
+            dones.append(ts_done(params, "load", ref.slot, t))
+            if with_log:
+                lv = {"reward": zero, "load_met": load_met,
+                      "load_current": row[..., 0]}
+                log_forecast(lv, ref)
+                log_vals[(ref.name, ref.num)] = lv
+
+        fixed_provided = numpy_sum_compat(provided)
+        fixed_absorbed = numpy_sum_compat(absorbed)
+
+        # -------------------------------------------- phase 2: controllable
+        charges = list(state["battery_charge"].unbind(-1))
+        gs = state["genset"]
+        new_gs = {k: list(v.unbind(-1)) for k, v in gs.items()}
+
+        for ref in spec.controllable:
+            if ref.kind == "battery":
+                i = ref.slot
+                p = params["battery"]
+                a = action["battery"][..., i]
+                if normalized:
+                    a = slot_param(p["act_low"], i) + slot_param(p["act_spread"], i) * a
+                charge = charges[i]
+                eff = slot_param(p["efficiency"], i)
+                min_cap = slot_param(p["min_capacity"], i)
+                max_cap = slot_param(p["max_capacity"], i)
+                max_prod = physics.battery_max_production(
+                    charge, min_cap, slot_param(p["max_discharge"], i), eff, xp=xp
+                )
+                max_cons = physics.battery_max_consumption(
+                    charge, max_cap, slot_param(p["max_charge"], i), eff, xp=xp
+                )
+                is_sink = a < 0
+                prov = physics.clip_source(a, zero, max_prod, xp=xp)
+                absd = physics.clip_sink(-a, max_cons, xp=xp)
+                internal_src = -prov / eff
+                internal_snk = absd * eff
+                prov = torch.where(is_sink, zero, prov)
+                absd = torch.where(is_sink, absd, zero)
+                internal = torch.where(is_sink, internal_snk, internal_src)
+                charge_new = charge + internal
+                charge_new = torch.where(charge_new < min_cap, min_cap, charge_new)
+                reward = -1.0 * (internal.abs() * slot_param(p["battery_cost_cycle"], i))
+                charges[i] = charge_new
+                provided.append(prov)
+                absorbed.append(absd)
+                rewards.append(reward)
+                if with_log:
+                    log_vals[(ref.name, ref.num)] = {
+                        "reward": reward,
+                        ref.log_fields[1]: prov,
+                        ref.log_fields[2]: absd,
+                        "soc": charge / max_cap,
+                        "current_charge": charge,
+                    }
+            elif ref.kind == "genset":
+                j = ref.slot
+                p = params["genset"]
+                goal_raw = action["genset"][..., j, 0]
+                energy = action["genset"][..., j, 1]
+                if normalized:
+                    energy = slot_param(p["act_low"], j) + slot_param(p["act_spread"], j) * energy
+                g = physics.round_half_even(goal_raw, xp=xp).to(torch.int32)
+                cur, goal_st, up, down = physics.genset_update_status(
+                    gs["current_status"][..., j],
+                    gs["goal_status"][..., j],
+                    gs["steps_until_up"][..., j],
+                    gs["steps_until_down"][..., j],
+                    g,
+                    slot_param(p["start_up_time"], j).to(torch.int32),
+                    slot_param(p["wind_down_time"], j).to(torch.int32),
+                    slot_param(p["allow_abortion"], j),
+                    xp=xp,
+                )
+                new_gs["current_status"][j] = cur
+                new_gs["goal_status"][j] = goal_st
+                new_gs["steps_until_up"][j] = up
+                new_gs["steps_until_down"][j] = down
+                statusf = cur.to(dtype)
+                prov = physics.clip_source(
+                    energy,
+                    statusf * slot_param(p["running_min_production"], j),
+                    statusf * slot_param(p["running_max_production"], j),
+                    xp=xp,
+                )
+                co2 = slot_param(p["co2_per_unit"], j) * prov
+                fuel = slot_param(p["genset_cost"], j) * prov
+                reward = -1.0 * (fuel + slot_param(p["cost_per_unit_co2"], j) * co2)
+                provided.append(prov)
+                rewards.append(reward)
+                if with_log:
+                    log_vals[(ref.name, ref.num)] = {
+                        "reward": reward,
+                        "co2_production": co2,
+                        ref.log_fields[2]: prov,
+                        "current_status": cur.to(dtype),
+                        "goal_status": goal_st.to(dtype),
+                        "steps_until_up": up.to(dtype),
+                        "steps_until_down": down.to(dtype),
+                    }
+            else:  # grid
+                k = ref.slot
+                p = params["grid"]
+                a = action["grid"][..., k]
+                if normalized:
+                    a = slot_param(p["act_low"], k) + slot_param(p["act_spread"], k) * a
+                row = cur_row("grid", k)        # (import, export, co2, status)
+                status = row[..., 3]
+                is_sink = a < 0
+                prov = physics.clip_source(
+                    a, zero, slot_param(p["max_import"], k) * status, xp=xp
+                )
+                absd = physics.clip_sink(-a, slot_param(p["max_export"], k) * status, xp=xp)
+                prov = torch.where(is_sink, zero, prov)
+                absd = torch.where(is_sink, absd, zero)
+                co2 = torch.where(is_sink, zero, prov * row[..., 2])
+                reward_imp = (-1 * row[..., 0]) * prov + (
+                    -1.0 * slot_param(p["cost_per_unit_co2"], k)
+                ) * co2
+                reward_exp = row[..., 1] * absd
+                reward = torch.where(is_sink, reward_exp, reward_imp)
+                provided.append(prov)
+                absorbed.append(absd)
+                rewards.append(reward)
+                dones.append(ts_done(params, "grid", k, t))
+                if with_log:
+                    lv = {
+                        "reward": reward,
+                        "co2_production": co2,
+                        "grid_import": prov,
+                        "grid_export": absd,
+                        "import_price_current": row[..., 0],
+                        "export_price_current": row[..., 1],
+                        "co2_per_kwh_current": row[..., 2],
+                        "grid_status_current": row[..., 3],
+                    }
+                    log_forecast(lv, ref)
+                    log_vals[(ref.name, ref.num)] = lv
+
+        provided_2 = numpy_sum_compat(provided)
+        absorbed_2 = numpy_sum_compat(absorbed)
+        difference = provided_2 - absorbed_2
+        is_excess = difference > 0
+
+        # ---------------------------------------------------- phase 3: flex
+        excess = difference
+        needed = -difference
+        for ref in spec.flex:
+            if ref.kind == "renewable":
+                r = ref.slot
+                cur = cur_row("renewable", r)[..., 0]
+                src = torch.where(cur < needed, cur, needed)
+                prov = torch.where(is_excess, zero, src)
+                needed = needed - src
+                provided.append(prov)
+                rewards.append(zero)
+                dones.append(ts_done(params, "renewable", r, t))
+                if with_log:
+                    lv = {
+                        "reward": zero,
+                        "curtailment": cur - prov,
+                        ref.log_fields[2]: prov,
+                        "renewable_current": cur,
+                    }
+                    log_forecast(lv, ref)
+                    log_vals[(ref.name, ref.num)] = lv
+            else:  # balancing
+                b = ref.slot
+                p = params["balancing"]
+                absd = torch.where(is_excess, excess, zero)
+                prov = torch.where(is_excess, zero, needed)
+                reward = torch.where(
+                    is_excess,
+                    -1.0 * (slot_param(p["overgeneration_cost"], b) * absd),
+                    -1.0 * (slot_param(p["loss_load_cost"], b) * prov),
+                )
+                excess = excess + (-absd)
+                needed = needed - prov
+                provided.append(prov)
+                absorbed.append(absd)
+                rewards.append(reward)
+                if with_log:
+                    log_vals[(ref.name, ref.num)] = {
+                        "reward": reward,
+                        ref.log_fields[1]: prov,
+                        ref.log_fields[2]: absd,
+                    }
+
+        provided_f = numpy_sum_compat(provided)
+        absorbed_f = numpy_sum_compat(absorbed)
+
+        reward_total = zero
+        for r in rewards:
+            reward_total = reward_total + r
+        done = torch.zeros(batch, dtype=torch.bool, device=t.device)
+        for d in dones:
+            done = done | d
+
+        # ------------------------------------------------------ advance time
+        new_t = t + 1
+        new_state = {
+            "step": new_t,
+            "battery_charge": _stack_slots(charges, state["battery_charge"]),
+            "genset": {k: _stack_slots(v, gs[k]) for k, v in new_gs.items()},
+            "forecast": {},
+        }
+
+        obs = None
+        if with_obs:
+            obs = _build_obs(
+                spec, params, new_state, batch, dtype,
+                obs_row=None if table_row is None else table_row[..., row_width:],
+            )
+        log_row = None
+        if with_log:
+            log_row = _build_log_row(
+                spec, log_vals, batch, dtype, t.device,
+                [reward_total, reward_total, provided_f, absorbed_f,
+                 provided_2 - fixed_provided, absorbed_2 - fixed_absorbed,
+                 fixed_provided, fixed_absorbed],
+            )
+
+        expand = lambda x: torch.as_tensor(x, dtype=dtype, device=t.device).expand(batch)
+        return new_state, StepOutput(
+            obs=obs,
+            reward=expand(reward_total),
+            shaped_reward=expand(reward_total),
+            done=done,
+            log_row=log_row,
+            provided=expand(provided_f),
+            absorbed=expand(absorbed_f),
+        )
+
+    return step
+
+
+def _stack_slots(slots, like):
+    if not slots:
+        return like
+    return torch.stack(slots, dim=-1)
+
+
+def _build_obs(spec, params, state, batch, dtype, obs_row=None):
+    """Normalized observation at ``state['step']``, ``(C, B, obs_dim)``.
+
+    ``obs_row``, when the step gathered a table row, carries the tabulated ts
+    segments; otherwise every segment is computed from the series."""
+    layout = obs_table_layout(spec)[0] if obs_row is not None else {}
+    t = state["step"]
+    parts = []
+    for ref in spec.log_order:
+        if ref.kind in ("load", "renewable", "grid"):
+            if obs_row is not None and tabulable(spec, ref):
+                off, width = layout[(ref.name, ref.num)]
+                parts.append(obs_row[..., off : off + width])
+            else:
+                parts.append(ts_obs_part(spec, params, t, ref))
+        elif ref.kind == "battery":
+            p = params["battery"]
+            charge = state["battery_charge"][..., ref.slot]
+            vec = torch.stack([charge / slot_param(p["max_capacity"], ref.slot), charge], -1)
+            parts.append(
+                (vec - slot_param(p["obs_low"], ref.slot)) / slot_param(p["obs_spread"], ref.slot)
+            )
+        elif ref.kind == "genset":
+            p = params["genset"]
+            gs = state["genset"]
+            vec = torch.stack(
+                [gs[k][..., ref.slot] for k in
+                 ("current_status", "goal_status", "steps_until_up", "steps_until_down")],
+                -1,
+            ).to(dtype)
+            parts.append(
+                (vec - slot_param(p["obs_low"], ref.slot)) / slot_param(p["obs_spread"], ref.slot)
+            )
+        # balancing: empty state
+    if not parts:
+        return torch.zeros(batch + (0,), dtype=dtype, device=t.device)
+    return torch.cat([x.expand(batch + x.shape[-1:]) for x in parts], dim=-1)
+
+
+def _build_log_row(spec, log_vals, batch, dtype, device, balance):
+    vals = []
+    for ref in spec.log_order:
+        lv = log_vals[(ref.name, ref.num)]
+        for field in ref.log_fields:
+            vals.append(lv[field])
+    vals += balance
+    return torch.stack(
+        [torch.as_tensor(v, device=device).to(dtype).expand(batch) for v in vals],
+        dim=-1,
+    )

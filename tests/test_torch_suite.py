@@ -1,0 +1,165 @@
+"""The port's suite rollout against the JAX SuiteRunner (CPU, float64).
+
+Both packages get identical starts: the JAX runner draws them from its keys,
+and the test recomputes them from the same keys (as
+``tests/test_suite.py::test_randomized_initial_step_matches_shifted_host``
+does) and hands them to the port.  The throughput-mode checksum
+``acc + reward + obs.sum(-1)`` contains a reduction whose order differs
+between the frameworks, so it is compared at rtol 1e-12; reward streams are
+compared bitwise.
+"""
+import warnings
+from pathlib import Path
+
+import jax
+import numpy as np
+import torch
+
+import pymgrid_tpu
+from pymgrid_tpu.core.rollout import make_marginal_cost_policy as jax_mc_policy
+from pymgrid_tpu.parallel.suite import SuiteRunner as JaxSuiteRunner
+from pymgrid_tpu_torch.core import rollout as tro
+from pymgrid_tpu_torch.core.engine import make_reset_fn
+from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
+from pymgrid_tpu_torch.parallel.suite import SuiteRunner
+
+torch.set_num_threads(1)
+
+FIXTURE = Path(__file__).parent / "fixtures" / "golden_rbc.npz"
+
+
+def _jax_starts(runner, keys):
+    ts_lengths = [m.ts_length for m in runner.spec.log_order if m.ts_length]
+    max_start = min(ts_lengths) - 1
+    i0 = np.asarray(runner.params["initial_step"]).reshape(-1)
+    return np.array([
+        [int(jax.random.randint(jax.random.fold_in(keys[c, b], 0x51A7), (),
+                                int(i0[c]), max_start))
+         for b in range(keys.shape[1])]
+        for c in range(keys.shape[0])
+    ], dtype=np.int32)
+
+
+def _compare_throughput_mode(make_mgs, B, n_steps, seed):
+    jrunner = JaxSuiteRunner(make_mgs(), batch_per_config=B, dtype=np.float64)
+    fn = jrunner.rollout_fn(
+        jax_mc_policy(jrunner.spec), n_steps, auto_reset=True, collect=False,
+        randomize_initial_step=True, block_prefetch=False,
+    )
+    keys = jrunner.make_keys(seed=seed)
+    want = np.asarray(fn(jrunner.params, keys))
+    starts = _jax_starts(jrunner, keys)
+
+    runner = SuiteRunner(make_mgs(), batch_per_config=B, dtype="float64",
+                         device="cpu")
+    assert runner.max_start == min(
+        m.ts_length for m in runner.spec.log_order if m.ts_length) - 1
+    ours = runner.rollout_fn(
+        make_marginal_cost_policy(runner.spec), n_steps, auto_reset=True,
+        collect=False, randomize_initial_step=True,
+    )(runner.params, torch.as_tensor(starts))
+    assert ours.shape == want.shape
+    # rtol 1e-12: the per-step obs.sum(-1) is a reduction whose order is
+    # framework-specific; everything else is bitwise
+    np.testing.assert_allclose(ours.numpy(), want, rtol=1e-12)
+    return starts
+
+
+def test_suite_randomized_starts_match_jax():
+    scenarios = (0, 1, 4, 22)
+    starts = _compare_throughput_mode(
+        lambda: [pymgrid_tpu.Microgrid.from_scenario(n) for n in scenarios],
+        B=3, n_steps=24, seed=3,
+    )
+    assert len(np.unique(starts)) > 1
+
+
+def _short_series_mgs(T=40):
+    from pymgrid_tpu.microgrid import Microgrid
+    from pymgrid_tpu.modules import (
+        BatteryModule, GridModule, LoadModule, RenewableModule,
+    )
+
+    rng = np.random.RandomState(0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return [Microgrid([
+            BatteryModule(min_capacity=10, max_capacity=100, max_charge=50,
+                          max_discharge=50, efficiency=0.9,
+                          battery_cost_cycle=0.02, init_soc=0.5),
+            ("pv", RenewableModule(time_series=50 * rng.rand(T))),
+            LoadModule(time_series=60 * rng.rand(T)),
+            GridModule(max_import=100, max_export=100,
+                       time_series=rng.rand(T, 3)),
+        ])]
+
+
+def test_suite_sequential_wrap_matches_jax():
+    """A 40-step series: every replica auto-resets repeatedly through the
+    sequential wrap of the throughput mode."""
+    _compare_throughput_mode(_short_series_mgs, B=6, n_steps=160, seed=5)
+
+
+def test_suite_randomized_collect_resets():
+    """collect=True with randomized auto-resets: each finished replica
+    restarts at the generator's next draw, and every episode's reward stream
+    equals a plain rollout from that start."""
+    B, n_steps = 3, 100
+    runner = SuiteRunner(_short_series_mgs(), batch_per_config=B,
+                         dtype="float64", device="cpu")
+    policy = make_marginal_cost_policy(runner.spec)
+    gen = torch.Generator().manual_seed(7)
+    starts = runner.draw_initial_steps(gen)
+    fn = runner.rollout_fn(policy, n_steps, auto_reset=True, collect=True,
+                           randomize_initial_step=True)
+    _, outs = fn(runner.params, starts, generator=gen)
+    rewards, dones = outs.reward[0].numpy(), outs.done[0].numpy()
+
+    # replay the draws: one (C, B) draw for the starts, then one per step
+    replay = torch.Generator().manual_seed(7)
+    draws = [runner.draw_initial_steps(replay)[0].numpy()]
+    draws += [runner.draw_initial_steps(replay)[0].numpy() for _ in range(n_steps)]
+    episodes = []  # (replica, first step, length, start)
+    for b in range(B):
+        first, start = 0, int(draws[0][b])
+        for k in np.flatnonzero(dones[b]):
+            episodes.append((b, first, k + 1 - first, start))
+            first, start = k + 1, int(draws[k + 1][b])
+        if first < n_steps:
+            episodes.append((b, first, n_steps - first, start))
+    assert len(episodes) > 2 * B  # every replica restarted more than once
+    assert len({e[3] for e in episodes}) > B
+
+    plain = tro.make_rollout_fn(runner.spec, policy, max(e[2] for e in episodes),
+                                collect=False)
+    ep_starts = torch.tensor([[e[3] for e in episodes]], dtype=torch.int32)
+    _, (want, _) = plain(runner.params, make_reset_fn(runner.spec)(runner.params, ep_starts))
+    for i, (b, first, length, start) in enumerate(episodes):
+        np.testing.assert_array_equal(rewards[b, first:first + length],
+                                      want[:length, 0, i].numpy(),
+                                      err_msg=f"replica {b} from step {first}")
+
+
+def test_suite_collect_matches_golden_all_scenarios():
+    """``collect=True`` reward streams of all 25 configs in one batch equal
+    the reference RBC streams bitwise (the golden fixture, which the JAX
+    package's run_compiled reproduces: tests/test_golden_year.py)."""
+    n_steps = 40
+    runner = SuiteRunner(
+        [pymgrid_tpu.Microgrid.from_scenario(n) for n in range(25)],
+        batch_per_config=1, dtype="float64", device="cpu",
+    )
+    fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), n_steps,
+                           auto_reset=False, collect=True)
+    acc, outs = fn(runner.params, runner.fixed_initial_steps())
+    assert outs.reward.shape == (25, 1, n_steps)
+    assert outs.obs.shape == (25, 1, n_steps, runner.spec.obs_dim)
+    assert outs.log_row.shape == (25, 1, n_steps, runner.spec.n_log_fields)
+    assert torch.isfinite(acc).all()
+    with np.load(FIXTURE) as golden:
+        for n in range(25):
+            np.testing.assert_array_equal(
+                outs.reward[n, 0].numpy(),
+                golden[f"scenario_{n}_reward"][:n_steps],
+                err_msg=f"scenario {n}",
+            )
