@@ -18,7 +18,15 @@ which fails the run on error:
               the 25-config suite (20480 replicas per config x 1000 steps,
               float32, randomized starts, auto-reset; held against the same
               rollout on the CPU in float64 for 4 replicas per config).
-3. kernels    the kernel against its plain PyTorch version on the card at the
+3. envs       the batched RL envs through their user entry points at
+              ``bench.py``'s widths (65536 replicas x 100 steps, float32):
+              ``BatchedDiscreteEnv`` on scenario 0 and ``BatchedContinuousEnv``
+              on scenario 1, each timed as a ``step()`` loop, a
+              ``rollout(shared_step=True)`` and a ``rollout(keep_obs=False)``;
+              the rollouts held bitwise against the loop, the first replicas
+              against the host numpy env (float64) at rtol 1e-4, and a float64
+              run on the card bitwise against the host env.
+4. kernels    the kernel against its plain PyTorch version on the card at the
               main-path shape and on all 25 scenarios; kernel and plain times.
 
 Every time printed carries the card's name and power limit.  The line before
@@ -214,6 +222,125 @@ def phase_suite(device, n_configs, replicas, n_steps, ref_replicas=4, seed=0,
             "max_rel_vs_cpu_f64": rel}
 
 
+def _host_env_run(env, actions):
+    """Step a freshly built host numpy env through ``actions``; returns the
+    reward, done and observation streams.  (A used one would not do:
+    ``reset()`` does not restore scenario 1's first state.)"""
+    rewards, dones, obs = [], [], []
+    for action in actions:
+        o, r, d, _ = env.step(action)
+        rewards.append(r)
+        dones.append(d)
+        obs.append(np.asarray(o, dtype=np.float64))
+    return np.array(rewards), np.array(dones), np.stack(obs)
+
+
+def _env_phase(device, env_cls, batched_cls, scenario, batch, n_steps, draw,
+               host_action, ref_replicas, rtol):
+    """One batched env through its user entry points, checked as the
+    ``phase_*_env`` docstrings say."""
+    import torch
+
+    venv = batched_cls(env_cls.from_scenario(scenario), batch, "float32", device)
+    actions_np = draw(venv)
+    actions = torch.as_tensor(actions_np, device=device)
+    venv.step(venv.reset(seed=0), actions[0])   # first launches, not timed
+
+    def step_loop():
+        states, outs = venv.reset(seed=0), []
+        for k in range(n_steps):
+            states, out = venv.step(states, actions[k])
+            outs.append(out)
+        return outs
+
+    outs, loop_s = _timed(step_loop, device)
+    loop = {f: torch.stack([getattr(o, f) for o in outs]) for f in ("reward", "done", "obs")}
+    del outs
+    _check(loop["obs"].shape == (n_steps, batch, venv.obs_dim)
+           and bool(torch.isfinite(loop["reward"]).all())
+           and bool(torch.isfinite(loop["obs"]).all()),
+           f"{batched_cls.__name__}: non-finite or misshapen step outputs")
+
+    (_, shared), shared_s = _timed(
+        lambda: venv.rollout(venv.reset(seed=0), actions, shared_step=True), device)
+    for f in ("reward", "done", "obs"):
+        _check(torch.equal(getattr(shared, f), loop[f]),
+               f"{batched_cls.__name__}: rollout(shared_step=True) {f} differs from the step loop")
+    del shared
+    (_, lean), lean_s = _timed(
+        lambda: venv.rollout(venv.reset(seed=0), actions, keep_obs=False), device)
+    _check(lean.obs is None, f"{batched_cls.__name__}: keep_obs=False returned obs")
+    for f in ("reward", "done"):
+        _check(torch.equal(getattr(lean, f), loop[f]),
+               f"{batched_cls.__name__}: rollout(keep_obs=False) {f} differs from the step loop")
+
+    # the first replicas on the host numpy env (float64), and in float64 on
+    # the device bitwise against it
+    host = [_host_env_run(env_cls.from_scenario(scenario),
+                          [host_action(actions_np[k, b]) for k in range(n_steps)])
+            for b in range(ref_replicas)]
+    want = np.array([h[0].sum() for h in host])
+    got = loop["reward"][:, :ref_replicas].double().sum(0).cpu().numpy()
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+    _check(rel <= rtol, f"{batched_cls.__name__}: summed reward vs host float64 "
+                        f"max rel {rel:.3e} > {rtol}")
+    venv64 = batched_cls(env_cls.from_scenario(scenario), ref_replicas, "float64", device)
+    states = venv64.reset(seed=0)
+    for k in range(n_steps):
+        states, out = venv64.step(states, actions[k, :ref_replicas])
+        for b, (r, d, o) in enumerate(host):
+            _check(out.reward[b].item() == r[k] and bool(out.done[b]) == d[k]
+                   and np.array_equal(out.obs[b].cpu().numpy(), o[k]),
+                   f"{batched_cls.__name__} float64: step {k} replica {b} differs "
+                   f"from the host env")
+
+    env_steps = batch * n_steps
+    return {"step_loop_s": loop_s, "shared_rollout_s": shared_s,
+            "lean_rollout_s": lean_s,
+            "step_loop_per_s": env_steps / loop_s,
+            "shared_rollout_per_s": env_steps / shared_s,
+            "lean_rollout_per_s": env_steps / lean_s,
+            "max_rel_vs_host": rel, "obs_dim": venv.obs_dim}
+
+
+def phase_discrete_env(device, batch=65536, n_steps=100, scenario=0,
+                       ref_replicas=4, rtol=1e-4):
+    """``BatchedDiscreteEnv`` (float32) with ``RandomState(0)`` integer
+    actions, as ``bench.py``'s RL metrics draw them: the ``step()`` loop
+    with observations returned, ``rollout(shared_step=True)`` and
+    ``rollout(keep_obs=False)``, timed.  The rollouts' rewards, dones and
+    observations equal the loop's bitwise; the summed reward of the first
+    ``ref_replicas`` is within ``rtol`` of the host ``DiscreteMicrogridEnv``
+    in float64, and a float64 run of them on the device equals the host env
+    bitwise in reward, done and observation."""
+    from pymgrid_tpu.envs import DiscreteMicrogridEnv
+    from pymgrid_tpu_torch.parallel import BatchedDiscreteEnv
+
+    return _env_phase(
+        device, DiscreteMicrogridEnv, BatchedDiscreteEnv, scenario, batch, n_steps,
+        lambda venv: np.random.RandomState(0).randint(
+            venv.n_actions, size=(n_steps, batch)).astype(np.int32),
+        int, ref_replicas, rtol,
+    )
+
+
+def phase_continuous_env(device, batch=65536, n_steps=100, scenario=1,
+                         ref_replicas=4, rtol=1e-4):
+    """``BatchedContinuousEnv`` (float32) with ``RandomState(0)`` actions in
+    [0, 1], checked as :func:`phase_discrete_env` (the host env gets the
+    same float32 actions in float64)."""
+    from pymgrid_tpu.envs import ContinuousMicrogridEnv
+    from pymgrid_tpu_torch.parallel import BatchedContinuousEnv
+
+    return _env_phase(
+        device, ContinuousMicrogridEnv, BatchedContinuousEnv, scenario, batch,
+        n_steps,
+        lambda venv: np.random.RandomState(0).rand(
+            n_steps, batch, venv.action_dim).astype(np.float32),
+        lambda a: a.astype(np.float64), ref_replicas, rtol,
+    )
+
+
 def phase_kernel_vs_plain(sweep, device, rtol=1e-5, iters=5):
     """The kernel against its plain PyTorch version on the card, at the
     main-path shape and on every pymgrid25 scenario (1024 x 64 steps)."""
@@ -281,6 +408,19 @@ def main():
           f"{suite['max_rel_vs_cpu_f64']:.3e} {tag}", flush=True)
     launches = sweep["rollout"].launches + eng["kernel_launches"]
     _check(launches > 0, "the main path launched no rbc_rollout kernel")
+
+    # ---- batched RL envs -------------------------------------------------
+    for name, phase in (("discrete env, scenario 0", phase_discrete_env),
+                        ("continuous env, scenario 1", phase_continuous_env)):
+        env = phase(device)
+        for path, key in (("step() loop", "step_loop"),
+                          ("rollout(shared_step=True)", "shared_rollout"),
+                          ("rollout(keep_obs=False)", "lean_rollout")):
+            print(f"envs/{name}: {path} 65536 x 100 steps in {env[key + '_s']:.4f} s, "
+                  f"{env[key + '_per_s']:.6g} env-steps/s {tag}", flush=True)
+        print(f"envs/{name}: rollouts bitwise vs step loop; summed reward of 4 "
+              f"replicas max rel {env['max_rel_vs_host']:.3e} vs host float64; "
+              f"float64 on the card bitwise vs host env {tag}", flush=True)
 
     # ---- kernel against its plain version (launches not counted) ---------
     kvp = phase_kernel_vs_plain(sweep, device)

@@ -3,7 +3,9 @@
 It runs the rule-based-control main path — scenario -> spec -> step tables ->
 engine ``reset``/``step`` -> marginal-cost and priority-list policies -> time
 loops -> 25-config suite rollout — on PyTorch tensors, plus a hand-written CUDA
-kernel for the fused-horizon RBC sweep (:mod:`pymgrid_tpu_torch.ops`).
+kernel for the fused-horizon RBC sweep (:mod:`pymgrid_tpu_torch.ops`), and
+the batched RL envs over the same engine (:mod:`pymgrid_tpu_torch.parallel`)
+with state checkpoints (:mod:`pymgrid_tpu_torch.utils.checkpoint`).
 
 The numpy host layer of :mod:`pymgrid_tpu` (``Microgrid``, ``extract_spec``,
 ``physics``, ``numpy_sum_compat``, the table layouts, ``normalize_to_superset``

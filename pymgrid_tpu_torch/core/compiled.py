@@ -64,6 +64,20 @@ class CompiledMicrogrid:
     def step(self, state, action, normalized=False):
         return self._step_fns[normalized](self.params, state, action)
 
+    def save_state(self, path, state):
+        """Checkpoint an engine state to the file ``path``."""
+        from pymgrid_tpu_torch.utils.checkpoint import save_state
+
+        save_state(path, state)
+
+    def restore_state(self, path):
+        """Restore a checkpoint onto this engine's device and dtypes;
+        continuing from it reproduces the uninterrupted trajectory
+        bitwise."""
+        from pymgrid_tpu_torch.utils.checkpoint import restore_state
+
+        return restore_state(path, template=self.reset())
+
     # -------------------------------------------------------- action mapping
     def action_to_arrays(self, action_dict):
         """Host-style action dict -> engine action tensors ``(1, 1, ...)``."""

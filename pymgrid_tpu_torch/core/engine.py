@@ -53,7 +53,7 @@ _FOLLOW_UP = "ROADMAP.md A14 (engine surfaces after the first slice)"
 class StepOutput(NamedTuple):
     obs: Any           # (C, B, obs_dim) normalized observation, or None
     reward: Any        # (C, B) summed module reward
-    shaped_reward: Any # (C, B) (== reward: reward shapers are not ported yet)
+    shaped_reward: Any # (C, B) (== reward unless spec.shaper)
     done: Any          # (C, B) bool
     log_row: Any       # (C, B, n_log_fields) per-step log record, or None
     provided: Any      # (C, B) overall provided energy
@@ -78,10 +78,6 @@ def check_supported(spec):
                 f"({ref.name}, {ref.num}): custom battery/genset callables are "
                 f"not ported; see {_FOLLOW_UP}"
             )
-    if spec.shaper is not None:
-        raise NotImplementedError(
-            f"reward shaper {spec.shaper!r} is not ported; see {_FOLLOW_UP}"
-        )
     for ref in spec.fixed:
         if ref.kind != "load":
             raise NotImplementedError(f"fixed-phase kind {ref.kind} unsupported")
@@ -237,16 +233,26 @@ def make_reset_fn(spec):
     return reset
 
 
-def make_step_fn(spec, normalized=False, with_obs=True, with_log=True):
+def make_step_fn(spec, normalized=False, with_obs=True, with_log=True,
+                 obs_layout="log"):
     """Build the engine step for ``spec`` (see the module docstring).
 
     ``normalized``: incoming actions are in [0, 1] and are denormalized
     (genset goal entries never are).  ``with_obs`` / ``with_log``: build the
     outgoing observation / log row; ``StepOutput.obs`` / ``.log_row`` are
-    ``None`` otherwise.  Observation segments follow container (log) order.
+    ``None`` otherwise.  ``obs_layout``: ``"log"`` concatenates observation
+    segments in container (log) order; ``"env"`` in the gym env's flattened
+    order (Dict spaces sort module names), so batched envs need no
+    permutation gather.
     """
     check_supported(spec)
     dtype = torch_dtype(spec.dtype)
+    if obs_layout == "log":
+        obs_order = spec.log_order
+    elif obs_layout == "env":
+        obs_order = tuple(sorted(spec.log_order, key=lambda ref: (ref.name, ref.num)))
+    else:
+        raise ValueError(f"obs_layout must be 'log' or 'env', got {obs_layout!r}")
     row_layout, row_width = row_table_layout(spec)
     logfc_layout, _ = logfc_table_layout(spec)
 
@@ -259,6 +265,7 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True):
         zero = torch.zeros((), dtype=dtype, device=t.device)
         provided, absorbed, rewards, dones = [], [], [], []
         log_vals = {}
+        shaper_terms = []   # (name, field, value) the reward shapers sum
 
         table_row = None
         if "step_table" in params:
@@ -296,6 +303,7 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True):
             absorbed.append(load_met)
             rewards.append(zero)
             dones.append(ts_done(params, "load", ref.slot, t))
+            shaper_terms.append((ref.name, "load_met", load_met))
             if with_log:
                 lv = {"reward": zero, "load_met": load_met,
                       "load_current": row[..., 0]}
@@ -342,6 +350,7 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True):
                 provided.append(prov)
                 absorbed.append(absd)
                 rewards.append(reward)
+                shaper_terms.append((ref.name, ref.log_fields[1], prov))
                 if with_log:
                     log_vals[(ref.name, ref.num)] = {
                         "reward": reward,
@@ -448,14 +457,16 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True):
                 cur = cur_row("renewable", r)[..., 0]
                 src = torch.where(cur < needed, cur, needed)
                 prov = torch.where(is_excess, zero, src)
+                curtail = cur - prov
                 needed = needed - src
                 provided.append(prov)
                 rewards.append(zero)
                 dones.append(ts_done(params, "renewable", r, t))
+                shaper_terms.append((ref.name, "curtailment", curtail))
                 if with_log:
                     lv = {
                         "reward": zero,
-                        "curtailment": cur - prov,
+                        "curtailment": curtail,
                         ref.log_fields[2]: prov,
                         "renewable_current": cur,
                     }
@@ -476,6 +487,7 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True):
                 provided.append(prov)
                 absorbed.append(absd)
                 rewards.append(reward)
+                shaper_terms.append((ref.name, ref.log_fields[1], prov))
                 if with_log:
                     log_vals[(ref.name, ref.num)] = {
                         "reward": reward,
@@ -492,6 +504,7 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True):
         done = torch.zeros(batch, dtype=torch.bool, device=t.device)
         for d in dones:
             done = done | d
+        shaped = _shaped_reward(spec, reward_total, shaper_terms, zero)
 
         # ------------------------------------------------------ advance time
         new_t = t + 1
@@ -505,14 +518,14 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True):
         obs = None
         if with_obs:
             obs = _build_obs(
-                spec, params, new_state, batch, dtype,
+                spec, params, new_state, batch, dtype, obs_order,
                 obs_row=None if table_row is None else table_row[..., row_width:],
             )
         log_row = None
         if with_log:
             log_row = _build_log_row(
                 spec, log_vals, batch, dtype, t.device,
-                [reward_total, reward_total, provided_f, absorbed_f,
+                [reward_total, shaped, provided_f, absorbed_f,
                  provided_2 - fixed_provided, absorbed_2 - fixed_absorbed,
                  fixed_provided, fixed_absorbed],
             )
@@ -521,7 +534,7 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True):
         return new_state, StepOutput(
             obs=obs,
             reward=expand(reward_total),
-            shaped_reward=expand(reward_total),
+            shaped_reward=expand(shaped),
             done=done,
             log_row=log_row,
             provided=expand(provided_f),
@@ -537,15 +550,40 @@ def _stack_slots(slots, like):
     return torch.stack(slots, dim=-1)
 
 
-def _build_obs(spec, params, state, batch, dtype, obs_row=None):
-    """Normalized observation at ``state['step']``, ``(C, B, obs_dim)``.
+def _shaped_reward(spec, reward_total, terms, zero):
+    """The built-in reward shapers on the step's ``(name, field, value)``
+    terms, summed in the JAX engine's order (``pymgrid_tpu/core/engine.py``
+    ``_shaped_reward``).  The load divisor stays a tensor."""
+    def total(name, field):
+        out = zero
+        for n, f, value in terms:
+            if n == name and f == field:
+                out = out + value
+        return out
+
+    if spec.shaper is None:
+        return reward_total
+    if spec.shaper == "pv_curtailment":
+        return -1.0 * total("pv", "curtailment")
+    battery = total("battery", "discharge_amount")
+    load = total("load", "load_met")
+    loss = total("unbalanced_energy", "loss_load")
+    no_load = load == 0
+    return torch.where(no_load, zero,
+                       (battery - loss) / torch.where(no_load, 1.0, load))
+
+
+def _build_obs(spec, params, state, batch, dtype, order, obs_row=None):
+    """Normalized observation at ``state['step']``, ``(C, B, obs_dim)``, with
+    segments in ``order``.
 
     ``obs_row``, when the step gathered a table row, carries the tabulated ts
-    segments; otherwise every segment is computed from the series."""
+    segments (keyed by module, so any order reads them); otherwise every
+    segment is computed from the series."""
     layout = obs_table_layout(spec)[0] if obs_row is not None else {}
     t = state["step"]
     parts = []
-    for ref in spec.log_order:
+    for ref in order:
         if ref.kind in ("load", "renewable", "grid"):
             if obs_row is not None and tabulable(spec, ref):
                 off, width = layout[(ref.name, ref.num)]

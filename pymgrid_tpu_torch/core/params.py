@@ -20,6 +20,7 @@ __all__ = [
     "params_to_torch",
     "state_to_torch",
     "with_config_axis",
+    "without_config_axis",
     "stack_configs",
     "tree_map",
 ]
@@ -57,15 +58,21 @@ def state_to_torch(state, device, dtype):
     """An engine state (numpy leaves, e.g. a JAX state fetched with
     ``np.asarray``) -> tensors.  Integer leaves (step, genset counters)
     become int32 as in the engine; the ``rng`` key has no use here and is
-    dropped."""
+    dropped.  A JAX batched env's state (``(B, ...)`` leaves plus ``rng``)
+    thus becomes the port env's state, which continues it bitwise."""
     device, dtype = resolve_device(device), torch_dtype(dtype)
     state = {k: v for k, v in state.items() if k != "rng"}
     return tree_map(lambda x: _leaf_to_torch(x, device, dtype, torch.int32), state)
 
 
 def with_config_axis(params):
-    """One config's params -> ``C = 1`` config-stacked params."""
+    """One config's params (or states) -> ``C = 1`` config-stacked ones."""
     return tree_map(lambda x: x.unsqueeze(0), params)
+
+
+def without_config_axis(tree):
+    """Drop the leading ``C = 1`` config axis again."""
+    return tree_map(lambda x: x[0], tree)
 
 
 def stack_configs(params_list):

@@ -8,10 +8,11 @@ multiplication by its reciprocal, which breaks bitwise parity with the numpy
 host layer (the same rule the JAX package follows against XLA's constant
 folding).
 """
+import numpy as np
 import torch
 
 from pymgrid_tpu.core.tables import row_table_layout
-from pymgrid_tpu_torch._device import torch_dtype
+from pymgrid_tpu_torch._device import resolve_device, torch_dtype
 from pymgrid_tpu_torch.core.engine import (
     StepOutput,
     slot_param,
@@ -22,19 +23,30 @@ from pymgrid_tpu_torch.core.engine import (
 
 __all__ = [
     "make_rollout_fn",
+    "rollout_policy",
+    "rollout_actions",
     "make_lockstep_sweep_fn",
     "lockstep_states",
     "make_priority_policy",
+    "make_table_policy",
     "make_marginal_cost_policy",
+    "make_random_policy",
     "select_state",
 ]
 
 
 def select_state(cond, fresh, current):
     """Per-replica ``where(cond, fresh, current)`` over a nested state;
-    ``cond`` is ``(C, B)`` and broadcasts over each leaf's trailing axes."""
+    ``cond`` is ``(C, B)`` and broadcasts over each leaf's trailing axes.
+
+    A shared ``(C, 1)`` leaf (the lockstep ``step``) stays shared: it takes
+    replica 0's condition, which speaks for all, since every replica of a
+    config has the same time and ``done`` depends on the time alone.
+    ``fresh`` must then be shared too (a reset from ``(C, 1)`` starts)."""
     if isinstance(current, dict):
         return {k: select_state(cond, fresh[k], current[k]) for k in current}
+    if current.dim() >= 2 and current.shape[1] == 1:
+        cond = cond[:, :1]
     c = cond.view(cond.shape + (1,) * (current.dim() - cond.dim()))
     return torch.where(c, fresh, current)
 
@@ -44,16 +56,19 @@ def _initial_steps(params, like):
     return params["initial_step"].to(torch.int32).unsqueeze(1).expand(like.shape)
 
 
-def make_rollout_fn(spec, policy, n_steps, auto_reset=False, collect=True):
+def make_rollout_fn(spec, policy, n_steps, normalized=False, auto_reset=False,
+                    collect=True):
     """Build ``(params, state) -> (final_state, outputs)``.
 
     ``outputs`` is a time-major :class:`StepOutput` (every field ``(T, C, B,
     ...)``) when ``collect``, else ``(rewards, dones)`` only, each
     ``(T, C, B)``.  With ``auto_reset`` a finished replica restarts at
-    ``params["initial_step"]``.  The ported policies emit raw (not
-    normalized) actions.
+    ``params["initial_step"]``.  ``normalized``: the policy emits actions in
+    [0, 1] (e.g. :func:`make_random_policy`); the rule-based policies emit
+    raw ones.
     """
-    step_fn = make_step_fn(spec, with_obs=collect, with_log=collect)
+    step_fn = make_step_fn(spec, normalized=normalized, with_obs=collect,
+                           with_log=collect)
     reset_fn = make_reset_fn(spec)
 
     def rollout(params, state):
@@ -72,6 +87,26 @@ def make_rollout_fn(spec, policy, n_steps, auto_reset=False, collect=True):
         return state, tuple(stacked)
 
     return rollout
+
+
+def rollout_policy(spec, params, state, policy, n_steps, normalized=False,
+                   auto_reset=False, collect=True):
+    """One-shot convenience wrapper over :func:`make_rollout_fn`."""
+    fn = make_rollout_fn(spec, policy, n_steps, normalized=normalized,
+                         auto_reset=auto_reset, collect=collect)
+    return fn(params, state)
+
+
+def rollout_actions(spec, params, state, actions, normalized=False):
+    """Step precomputed time-major actions (a dict of ``(T, C, B, ...)``
+    tensors) through the engine; returns ``(final_state, outputs)`` with a
+    time-major :class:`StepOutput`."""
+    step_fn = make_step_fn(spec, normalized=normalized)
+    outs = []
+    for t in range(actions["battery"].shape[0]):
+        state, out = step_fn(params, state, {k: v[t] for k, v in actions.items()})
+        outs.append(out)
+    return state, StepOutput(*[torch.stack(field) for field in zip(*outs)])
 
 
 def make_lockstep_sweep_fn(spec, policy, n_steps):
@@ -149,14 +184,20 @@ def _deploy(remaining, min_p, max_p, max_c):
     )
 
 
-def _genset_next_status_f(state, slot, goal, dtype):
-    """Predicted genset status under ``goal`` (policy side), as ``dtype``."""
+def _genset_next_on_off(state, slot):
+    """Predicted genset status (policy side) under goal on and goal off."""
     gs = state["genset"]
     cur = gs["current_status"][..., slot]
     up_ready = gs["steps_until_up"][..., slot] == 0
     down_ready = gs["steps_until_down"][..., slot] == 0
     next_on = torch.where(cur == 1, 1, torch.where(up_ready, 1, 0))
     next_off = torch.where(cur == 0, 0, torch.where(down_ready, 0, 1))
+    return next_on, next_off
+
+
+def _genset_next_status_f(state, slot, goal, dtype):
+    """Predicted genset status under ``goal`` (a tensor), as ``dtype``."""
+    next_on, next_off = _genset_next_on_off(state, slot)
     return torch.where(goal == 1, next_on, next_off).to(dtype)
 
 
@@ -336,5 +377,103 @@ def make_marginal_cost_policy(spec):
         if spec.n_genset:
             slots["genset_goal"][0] = goal.to(dtype)
         return _action(spec, _batch_of(state), slots, dtype, device)
+
+    return policy
+
+
+_KINDS = {"battery": 0, "genset": 1, "grid": 2}
+
+
+def make_table_policy(spec, priority_lists, device):
+    """Compile ALL priority lists into one table-driven policy
+    ``(params, state, action_idx) -> action``, ``action_idx`` a ``(C, B)``
+    integer tensor (out-of-range indices clamp, as a JAX gather does).
+
+    Every list is encoded once as an integer device table
+    ``[kind | slot | goal][action, position]``; each replica reads its row
+    with one index by its action.  Per deployment position the policy
+    computes every controllable module's energy candidate and selects by the
+    row's entry, so its cost is O(n_positions x n_controllable) whatever the
+    number of actions.  The per-position ``where(sel, e, 0)`` accumulation is
+    the JAX policy's own, which keeps the two bitwise equal.
+    """
+    dtype = torch_dtype(spec.dtype)
+    by_module = {(ref.name, ref.num): ref for ref in spec.controllable}
+    n_actions, n_positions = len(priority_lists), len(priority_lists[0])
+    table = np.zeros((n_actions, 3, n_positions), np.int64)
+    for a, plist in enumerate(priority_lists):
+        if len(plist) != n_positions:
+            raise ValueError("All priority lists must have equal length.")
+        for k, el in enumerate(plist):
+            ref = by_module[el.module]
+            table[a, :, k] = (_KINDS[ref.kind], ref.slot, el.action)
+    table = torch.as_tensor(table.reshape(n_actions, 3 * n_positions),
+                            device=resolve_device(device))
+    ctrl_refs = [(ref.kind, ref.slot) for ref in spec.controllable]
+
+    def policy(params, state, action_idx):
+        t = state["step"]
+        zero = torch.zeros((), dtype=dtype, device=t.device)
+        cur_row = _row_accessor(spec, params, t)
+        remaining = _net_load(spec, cur_row, zero)
+        row = table[action_idx.long().clamp(0, n_actions - 1)]   # (C, B, 3 * n_pos)
+        kinds, slots, goals = row.unflatten(-1, (3, n_positions)).unbind(-2)
+
+        # what each candidate needs that does not depend on the position
+        bounds, next_status = {}, {}
+        for kind, slot in ctrl_refs:
+            if kind == "battery":
+                bounds[(kind, slot)] = _battery_bounds(params, state, slot)
+            elif kind == "grid":
+                bounds[(kind, slot)] = _grid_bounds(params, cur_row, slot)
+            else:
+                next_status[slot] = _genset_next_on_off(state, slot)
+
+        energy_acc = {pair: zero for pair in ctrl_refs}
+        goal_acc = {slot: zero for kind, slot in ctrl_refs if kind == "genset"}
+        for k in range(n_positions):
+            kind_k, slot_k, goal_k = kinds[..., k], slots[..., k], goals[..., k]
+            energy_k = zero
+            for kind, slot in ctrl_refs:
+                sel = (kind_k == _KINDS[kind]) & (slot_k == slot)
+                if kind == "genset":
+                    on, off = next_status[slot]
+                    nsf = torch.where(goal_k == 1, on, off).to(dtype)
+                    e = _genset_energy(remaining, nsf, params["genset"], slot)
+                    goal_acc[slot] = goal_acc[slot] + torch.where(sel, goal_k.to(dtype), 0.0)
+                else:
+                    e = _deploy(remaining, zero, *bounds[(kind, slot)])
+                energy_k = torch.where(sel, e, energy_k)
+                energy_acc[(kind, slot)] = energy_acc[(kind, slot)] + torch.where(sel, e, 0.0)
+            remaining = remaining - energy_k
+
+        slots_out = {"battery": {}, "genset": {}, "genset_goal": goal_acc, "grid": {}}
+        for (kind, slot), energy in energy_acc.items():
+            slots_out[kind][slot] = energy
+        return _action(spec, _batch_of(state), slots_out, dtype, t.device)
+
+    return policy
+
+
+def make_random_policy(spec, generator):
+    """Uniform random actions in [0, 1] (for a ``normalized=True`` step),
+    drawn from ``generator``, which must live on the state's device.  The
+    JAX policy draws from the threefry key in ``state["rng"]``, which torch
+    cannot reproduce: the two agree in shape and range, not in values."""
+    dtype = torch_dtype(spec.dtype)
+
+    def policy(params, state):
+        batch = _batch_of(state)
+        device = state["step"].device
+
+        def draw(*tail):
+            return torch.rand(batch + tail, generator=generator, dtype=dtype,
+                              device=device)
+
+        return {
+            "battery": draw(spec.n_battery),
+            "genset": draw(spec.n_genset, 2),
+            "grid": draw(spec.n_grid),
+        }
 
     return policy

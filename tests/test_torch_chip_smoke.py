@@ -35,6 +35,15 @@ def test_kernel_sweep_phase_cpu():
     assert out["rollout"].launches == 0
 
 
+@pytest.mark.parametrize("phase", ["phase_discrete_env", "phase_continuous_env"])
+def test_env_phase_cpu(phase):
+    """The env phases at 8 replicas x 12 steps: their rollout-vs-loop,
+    host-env and float64 checks run and pass on the CPU."""
+    out = getattr(chip_smoke, phase)("cpu", batch=8, n_steps=12)
+    assert out["max_rel_vs_host"] <= 1e-4
+    assert out["step_loop_per_s"] > 0 and out["lean_rollout_per_s"] > 0
+
+
 def test_main_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:

@@ -258,3 +258,65 @@ def test_physics_shim_genset_machine_exhaustive(allow_abortion):
         physics.battery_max_consumption(np.array([5.0, 9.5]), 10.0, 2.0, 0.9))
     _eq(physics.round_half_even(torch.tensor([0.5, 1.5, 2.5, -0.5]), xp=xp).numpy(),
         np.round(np.array([0.5, 1.5, 2.5, -0.5], np.float32)))
+
+
+@pytest.mark.parametrize("shaper", ["PVCurtailmentShaper", "BatteryDischargeShaper"])
+def test_reward_shapers_match_jax_and_host(shaper):
+    """Both built-in shapers: the port's shaped reward (and the log row's
+    shaped column) against the JAX step and the host ``Microgrid.run``,
+    bitwise (the pattern of tests/test_engine_equivalence.py)."""
+    from pymgrid_tpu.core.compiled import CompiledMicrogrid as JaxCompiledMicrogrid
+    from pymgrid_tpu.microgrid import reward_shaping
+
+    def make():
+        mods, _ = build_microgrid(M, module_params(seed=41))
+        return Microgrid(mods, reward_shaping_func=getattr(reward_shaping, shaper)())
+
+    mg = make()
+    compiled = CompiledMicrogrid(make(), dtype="float64", device="cpu")
+    jcompiled = JaxCompiledMicrogrid(make(), dtype=np.float64)
+    assert compiled.spec.shaper is not None
+    state, jstate = compiled.initial_state(), jcompiled.initial_state(seed=3)
+    np.random.seed(17)
+    shaped = []
+    for t in range(20):
+        action = mg.sample_action()
+        _, host_shaped, _, _ = mg.run(action, normalized=False)
+        state, out = compiled.step(state, compiled.action_to_arrays(action))
+        jstate, jout = jcompiled.step(jstate, jcompiled.action_to_arrays(action))
+        assert float(out.shaped_reward) == host_shaped, f"step {t}"
+        for field in ("shaped_reward", "reward", "log_row"):
+            _eq(getattr(out, field)[0, 0].numpy(), getattr(jout, field), f"step {t} {field}")
+        shaped.append(float(out.shaped_reward))
+        assert float(out.log_row[0, 0, -7]) == host_shaped   # the shaped column
+    assert len(set(shaped)) > 1
+
+
+@pytest.mark.parametrize("tables", [False, True])
+def test_obs_layout_env_matches_jax(tables):
+    """``obs_layout="env"`` concatenates segments in sorted-name order, as the
+    JAX step does; scenario 1 has names out of order in the container."""
+    spec, params, _ = extract_spec(pymgrid_tpu.Microgrid.from_scenario(1))
+    assert [r.name for r in spec.log_order] != sorted(r.name for r in spec.log_order)
+    jparams = jax.tree.map(jnp.asarray, params)
+    tparams = params_to_torch(params, "cpu", "float64")
+    if tables:
+        jparams = jax_ensure_tables(spec, jparams)
+        tparams = ensure_tables(spec, tparams)
+    tparams = with_config_axis(tparams)
+    rng = np.random.RandomState(9)
+    starts = rng.randint(0, 8700, size=3).astype(np.int32)
+    keys = jax.random.split(jax.random.PRNGKey(0), 3)
+    jstate = jax.vmap(jax_reset_fn(spec), in_axes=(None, 0, 0))(jparams, keys,
+                                                               jnp.asarray(starts))
+    jstep = jax.jit(jax.vmap(jax_step_fn(spec, obs_layout="env"), in_axes=(None, 0, 0)))
+    state = make_reset_fn(spec)(tparams, torch.as_tensor(starts).view(1, 3))
+    step = make_step_fn(spec, obs_layout="env")
+    for t in range(5):
+        action = _random_actions(rng, spec, params, 3, normalized=False)
+        jstate, jout = jstep(jparams, jstate, jax.tree.map(jnp.asarray, action))
+        state, out = step(tparams, state,
+                          {k: torch.as_tensor(v).unsqueeze(0) for k, v in action.items()})
+        _eq(out.obs[0].numpy(), jout.obs, f"step {t}")
+    with pytest.raises(ValueError, match="obs_layout"):
+        make_step_fn(spec, obs_layout="gym")

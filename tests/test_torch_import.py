@@ -22,13 +22,23 @@ names = [m.name for m in pkgutil.walk_packages(pymgrid_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 
+for name in ("pymgrid_tpu_torch.parallel.batch", "pymgrid_tpu_torch.parallel.batched_env",
+             "pymgrid_tpu_torch.utils.checkpoint"):
+    assert name in names, name
+
 import pymgrid_tpu
+from pymgrid_tpu.envs import DiscreteMicrogridEnv
+from pymgrid_tpu_torch.parallel import BatchedDiscreteEnv
 from pymgrid_tpu_torch.core.compiled import CompiledMicrogrid
 mg = CompiledMicrogrid(pymgrid_tpu.Microgrid.from_scenario(0), dtype="float64",
                        device="cpu")
 state, out = mg.step(mg.reset(), mg.zero_action())
 assert out.obs.shape == (1, 1, mg.spec.obs_dim)
 assert torch.isfinite(out.reward).all() and int(state["step"]) == 1
+env = BatchedDiscreteEnv(DiscreteMicrogridEnv.from_scenario(1), batch_size=3,
+                         dtype="float32", device="cpu")
+_, outs = env.rollout(env.reset(), [[0, 1, 2]] * 4, shared_step=True)
+assert outs.obs.shape == (4, 3, env.obs_dim) and torch.isfinite(outs.reward).all()
 print("OK", len(names))
 """
 
@@ -39,7 +49,7 @@ def test_port_imports_and_steps_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 12  # every module was walked
+    assert int(proc.stdout.split()[1]) >= 16  # every module was walked
 
 
 def test_no_file_of_the_port_imports_jax():

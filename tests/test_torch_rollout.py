@@ -119,3 +119,113 @@ def test_run_compiled_golden_full_year(scenario):
     golden = _golden(scenario)
     assert ours.shape == golden.shape
     np.testing.assert_array_equal(ours, golden)
+
+
+def _random_states(spec, params, rng, B):
+    """B engine states (numpy) at random steps, charges and genset machines."""
+    pb, pg = params["battery"], params["genset"]
+    charge = pb["min_capacity"] + (pb["max_capacity"] - pb["min_capacity"]) * rng.rand(
+        B, spec.n_battery)
+    status = rng.randint(0, 2, size=(B, spec.n_genset)).astype(np.int32)
+    return {
+        "step": rng.randint(0, 8700, size=B).astype(np.int32),
+        "battery_charge": charge,
+        "genset": {
+            "current_status": status,
+            "goal_status": rng.randint(0, 2, size=(B, spec.n_genset)).astype(np.int32),
+            "steps_until_up": rng.randint(0, 2, size=(B, spec.n_genset)).astype(np.int32),
+            "steps_until_down": rng.randint(0, 2, size=(B, spec.n_genset)).astype(np.int32),
+        },
+    }
+
+
+@pytest.mark.parametrize("tables", [False, True])
+def test_table_policy_matches_jax_every_action(tables):
+    """Scenario 1 (battery, genset, grid): every action index, each on its
+    own random state, against the JAX table policy, bitwise."""
+    from pymgrid_tpu.envs import DiscreteMicrogridEnv
+
+    env = DiscreteMicrogridEnv.from_scenario(1)
+    lists = [list(pl) for pl in env.actions_list]
+    mg, spec, jparams, tparams = _setup(1, tables)
+    assert spec.n_genset == 1 and len(lists) > 4
+    _, params, _ = extract_spec(mg)
+    rng = np.random.RandomState(12)
+    reps = 3
+    idx = np.tile(np.arange(len(lists)), reps).astype(np.int32)
+    states = _random_states(spec, params, rng, len(idx))
+
+    jpolicy = jro.make_table_policy(spec, lists)
+    want = jax.jit(jax.vmap(jpolicy, in_axes=(None, 0, 0)))(
+        jparams, {**jax.tree.map(jnp.asarray, states), "rng": jnp.zeros((len(idx), 2), jnp.uint32)},
+        jnp.asarray(idx))
+    policy = tro.make_table_policy(spec, lists, "cpu")
+    tstates = jax.tree.map(lambda x: torch.as_tensor(x).unsqueeze(0), states)
+    got = policy(tparams, tstates, torch.as_tensor(idx).view(1, -1))
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape[1:] == want[k].shape
+        np.testing.assert_array_equal(got[k][0].numpy(), np.asarray(want[k]), err_msg=k)
+    assert len(np.unique(np.asarray(want["grid"]))) > len(lists)   # states differ
+
+
+def test_random_policy_shape_range_and_seed():
+    _, spec, _, tparams = _setup(1, tables=False)
+    state = make_reset_fn(spec)(tparams, torch.zeros((2, 5), dtype=torch.int32))
+    draw = lambda seed: tro.make_random_policy(spec, torch.Generator().manual_seed(seed))(
+        tparams, state)
+    a, b, c = draw(3), draw(3), draw(4)
+    sizes = {"battery": (spec.n_battery,), "genset": (spec.n_genset, 2), "grid": (spec.n_grid,)}
+    for k, tail in sizes.items():
+        assert a[k].shape == (2, 5) + tail and a[k].dtype == torch.float64
+        assert bool(((a[k] >= 0) & (a[k] < 1)).all())
+        assert torch.equal(a[k], b[k]) and not torch.equal(a[k], c[k])
+    assert len(torch.unique(a["battery"])) == 10      # replicas draw apart
+
+
+def test_rollout_actions_and_normalized_rollout_match_jax():
+    """``rollout_actions`` (normalized actions) against the JAX one, bitwise;
+    ``rollout_policy`` with the random policy equals ``rollout_actions`` fed
+    the same draws."""
+    n_steps, B = 25, 3
+    _, spec, jparams, tparams = _setup(1, tables=True)
+    gen = torch.Generator().manual_seed(11)
+    policy = tro.make_random_policy(spec, gen)
+    state = make_reset_fn(spec)(tparams, torch.full((1, B), 100, dtype=torch.int32))
+    draws = [policy(tparams, state) for _ in range(n_steps)]
+    actions = {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+
+    final, outs = tro.rollout_actions(spec, tparams, state, actions, normalized=True)
+    keys = jax.random.split(jax.random.PRNGKey(0), B)
+    jstate = jax.vmap(jax_reset_fn(spec), in_axes=(None, 0, None))(jparams, keys, 100)
+    jfinal, jouts = jax.vmap(
+        lambda s, a: jro.rollout_actions(spec, jparams, s, a, normalized=True),
+        in_axes=(0, 1), out_axes=(0, 1),
+    )(jstate, jax.tree.map(lambda x: jnp.asarray(x[:, 0].numpy()), actions))
+    for field in ("obs", "reward", "shaped_reward", "done", "log_row"):
+        np.testing.assert_array_equal(getattr(outs, field)[:, 0].numpy(),
+                                      np.asarray(getattr(jouts, field)), err_msg=field)
+    np.testing.assert_array_equal(final["battery_charge"][0].numpy(),
+                                  np.asarray(jfinal["battery_charge"]))
+
+    replay = tro.make_random_policy(spec, torch.Generator().manual_seed(11))
+    _, same = tro.rollout_policy(spec, tparams, state, replay, n_steps, normalized=True)
+    for field in ("obs", "reward", "log_row"):
+        assert torch.equal(getattr(same, field), getattr(outs, field)), field
+    _, (rewards, _) = tro.rollout_policy(spec, tparams, state, tro.make_random_policy(
+        spec, torch.Generator().manual_seed(11)), n_steps, normalized=True, collect=False)
+    assert torch.equal(rewards, outs.reward)
+
+
+def test_select_state_keeps_a_shared_step():
+    """A ``(C, 1)`` step leaf takes replica 0's condition and stays shared;
+    per-replica leaves select per replica from a shared fresh state."""
+    done = torch.tensor([[True, True, True], [False, False, False]])
+    current = {"step": torch.tensor([[20], [7]], dtype=torch.int32),
+               "battery_charge": torch.arange(6.0).view(2, 3, 1)}
+    fresh = {"step": torch.tensor([[0], [0]], dtype=torch.int32),
+             "battery_charge": torch.full((2, 1, 1), -1.0)}
+    out = tro.select_state(done, fresh, current)
+    assert out["step"].shape == (2, 1) and out["step"].tolist() == [[0], [7]]
+    assert out["battery_charge"].shape == (2, 3, 1)
+    assert out["battery_charge"][..., 0].tolist() == [[-1.0, -1.0, -1.0], [3.0, 4.0, 5.0]]
