@@ -13,8 +13,9 @@ which fails the run on error:
               points: the fused-horizon RBC kernel over an init-charge sweep
               of scenario 0 (131072 replicas x the full year, 8759 steps);
               the engine's lockstep sweep on the same replicas (2000 steps,
-              held against the kernel); the full-year scenario-1 RBC log on
-              the card in float64 (held bitwise against the golden stream);
+              held against the kernel); the scenario-1 RBC log on the card
+              in float64 over the first 2000 steps of the year (held bitwise
+              against the golden stream);
               the 25-config suite (20480 replicas per config x 1000 steps,
               float32, randomized starts, auto-reset; held against the same
               rollout on the CPU in float64 for 4 replicas per config).
@@ -26,7 +27,20 @@ which fails the run on error:
               the rollouts held bitwise against the loop, the first replicas
               against the host numpy env (float64) at rtol 1e-4, and a float64
               run on the card bitwise against the host env.
-4. kernels    the kernel against its plain PyTorch version on the card at the
+4. planners   the on-device planners through their user entry points:
+              ``SuiteMPC`` over all 25 pymgrid25 scenarios at horizon 24 for
+              48 steps in the published chip mode (float32, box IPM,
+              ``enum_bits=3``, ``enum_chunk=16``, ``iters=60``,
+              ``newton_refine=2``) and the same 48 steps in float64, held to
+              2% on scenarios 0, 4 and 1; ``BatchedMPC`` on scenario 1 (genset
+              MILP, ``enum_bits=5``) with 1024 float32 replicas (all equal
+              bitwise, within 2% of float64) and one float64 replica with the
+              host fallback (within 1e-4 of the host HiGHS MILP MPC, fallback
+              count as on the CPU); ``BatchedSAA`` on scenario 0 with every
+              sample the real data (equal to ``BatchedMPC`` at rtol 1e-5) and
+              with 10 sampled futures (finite rewards, the pick at the median
+              of the sorted costs).  24 steps each.
+5. kernels    the kernel against its plain PyTorch version on the card at the
               main-path shape and on all 25 scenarios; kernel and plain times.
 
 Every time printed carries the card's name and power limit.  The line before
@@ -341,6 +355,132 @@ def phase_continuous_env(device, batch=65536, n_steps=100, scenario=1,
     )
 
 
+def _costs(rewards):
+    return -np.asarray(rewards, np.float64).sum(axis=0)
+
+
+def phase_suite_mpc(device, n_scenarios=25, n_steps=48, held=(0, 4, 1), rtol=0.02):
+    """``SuiteMPC`` over scenarios ``0..n_scenarios-1`` in the published chip
+    mode (float32, box IPM, ``enum_bits=3``, ``enum_chunk=16``, ``iters=60``,
+    ``newton_refine=2``) and the same run in float64; every reward finite,
+    the ``held`` scenarios' float32 costs within ``rtol`` of float64 (the bar
+    of ``tests/test_mpc_suite.py::test_suite_mpc_chip_mode_f32_parity``)."""
+    from pymgrid_tpu import Microgrid
+    from pymgrid_tpu_torch.algos import SuiteMPC
+
+    def run(dtype, **kw):
+        mgs = [Microgrid.from_scenario(n) for n in range(n_scenarios)]
+        suite = SuiteMPC(mgs, dtype=dtype, device=device, enum_bits=3, enum_chunk=16, **kw)
+        (rewards, _), seconds = _timed(lambda: suite.run_scanned(n_steps, chunk=n_steps), device)
+        _check(rewards.shape == (n_steps, n_scenarios) and np.isfinite(rewards).all(),
+               f"suite MPC {dtype}: non-finite or misshapen rewards")
+        return _costs(rewards), seconds
+
+    cost32, s32 = run("float32", iters=60, newton_refine=2, matmul_precision="float32")
+    cost64, s64 = run("float64")
+    gap = np.abs(cost32 / cost64 - 1.0)
+    for n in held:
+        _check(gap[n] < rtol, f"suite MPC scenario {n}: float32 cost {cost32[n]:.2f} vs "
+                              f"float64 {cost64[n]:.2f} ({gap[n]:.3%})")
+    return {"cost32": cost32, "cost64": cost64, "seconds32": s32, "seconds64": s64,
+            "ms_per_hour32": s32 / n_steps * 1e3, "ms_per_hour64": s64 / n_steps * 1e3,
+            "max_rel_gap": float(gap.max()), "held_max_rel_gap": float(gap[list(held)].max())}
+
+
+def phase_batched_mpc(device, batch=1024, n_steps=24, scenario=1, expected_fallbacks=0,
+                      rtol32=0.02, rtol_host=1e-4):
+    """``BatchedMPC`` on scenario 1 (genset MILP, ``enum_bits=5``): ``batch``
+    float32 replicas without host fallback, all bitwise equal (deterministic
+    copies) and within ``rtol32`` of the float64 run; one float64 replica
+    with the host fallback, within ``rtol_host`` of the host HiGHS MILP MPC
+    (``tests/test_lp_mpc.py::test_batched_mpc_genset_milp_matches_host``)
+    with the fallback count of the port's CPU run
+    (``tests/test_torch_mpc_genset.py``)."""
+    from pymgrid_tpu import Microgrid
+    from pymgrid_tpu.algos import ModelPredictiveControl
+    from pymgrid_tpu_torch.algos import BatchedMPC
+
+    mg = lambda: Microgrid.from_scenario(scenario)
+    f32 = BatchedMPC(mg(), batch_size=batch, dtype="float32", device=device, enum_bits=5,
+                     host_fallback=False)
+    (r32, _), s32 = _timed(lambda: f32.run_scanned(n_steps), device)
+    _check(r32.shape == (n_steps, batch) and np.isfinite(r32).all(),
+           "batched MPC float32: non-finite or misshapen rewards")
+    _check(bool((r32 == r32[:, :1]).all()), "batched MPC float32: replicas differ")
+
+    f64 = BatchedMPC(mg(), batch_size=1, dtype="float64", device=device, enum_bits=5,
+                     host_fallback=True)
+    (r64, _), s64 = _timed(lambda: f64.run(n_steps), device)
+    log = ModelPredictiveControl(mg()).run(max_steps=n_steps)
+    host = float(-log[("balance", 0, "reward")].sum())
+    cost32, cost64 = float(_costs(r32[:, :1])[0]), float(_costs(r64)[0])
+    rel_host = abs(cost64 - host) / abs(host)
+    rel32 = abs(cost32 - cost64) / abs(cost64)
+    _check(rel_host < rtol_host, f"batched MPC float64 cost {cost64:.4f} vs host HiGHS "
+                                 f"{host:.4f}: rel {rel_host:.3e}")
+    _check(rel32 < rtol32, f"batched MPC float32 cost {cost32:.4f} vs float64 {cost64:.4f}")
+    _check(f64.fallback_count == expected_fallbacks,
+           f"batched MPC float64: {f64.fallback_count} host fallbacks, "
+           f"{expected_fallbacks} on the CPU")
+    return {"cost32": cost32, "cost64": cost64, "host_cost": host, "rel_host": rel_host,
+            "rel32": rel32, "seconds32": s32, "seconds64": s64,
+            "ms_per_hour32": s32 / n_steps * 1e3, "ms_per_hour64": s64 / n_steps * 1e3,
+            "fallback_count": f64.fallback_count}
+
+
+def phase_saa(device, n_steps=24, n_samples=10, scenario=0, seed=0):
+    """``BatchedSAA`` on scenario 0: with every sample the real data it
+    equals a float64 ``BatchedMPC`` run at rtol 1e-5
+    (``tests/test_lp_mpc.py::test_batched_saa_degenerate_equals_mpc``); with
+    ``n_samples`` futures (MAPE preset 85, float32) every reward is finite
+    and the executed sample sits at ``floor(N * 0.5)`` of the sorted costs."""
+    import torch
+
+    from pymgrid_tpu import Microgrid
+    from pymgrid_tpu.utils.data_generator import return_underlying_data
+    from pymgrid_tpu_torch.algos import BatchedMPC, BatchedSAA
+
+    mg = lambda: Microgrid.from_scenario(scenario)
+    real = return_underlying_data(mg().to_nonmodular())
+    saa = BatchedSAA(mg(), n_samples=3, samples=[real.copy() for _ in range(3)],
+                     dtype="float64", device=device)
+    r_saa, s_saa = _timed(lambda: saa.run(n_steps)[0], device)
+    r_mpc = BatchedMPC(mg(), batch_size=1, dtype="float64", device=device).run(n_steps)[0][:, 0]
+    rel = float(np.max(np.abs(r_saa - r_mpc) / np.maximum(np.abs(r_mpc), 1e-8)))
+    _check(np.allclose(r_saa, r_mpc, rtol=1e-5, atol=1e-8),
+           f"degenerate SAA vs BatchedMPC: max rel {rel:.3e}")
+
+    rng_state = np.random.get_state()
+    np.random.seed(seed)   # the host sample generators draw from np.random
+    try:
+        sampled = BatchedSAA(mg(), n_samples=n_samples, preset_to_use=85, dtype="float32",
+                             device=device)
+    finally:
+        np.random.set_state(rng_state)
+
+    def loop():
+        state, outs = sampled.reset(), []
+        for _ in range(n_steps):
+            state, out, costs, chosen = sampled.step(state)
+            outs.append((out.reward, costs, chosen))
+        return outs
+
+    outs, s_sampled = _timed(loop, device)
+    rewards = torch.stack([o[0] for o in outs]).cpu().numpy()
+    costs = torch.stack([o[1] for o in outs]).cpu().numpy()
+    chosen = torch.stack([o[2] for o in outs]).cpu().numpy()
+    k = int(np.floor(n_samples * 0.5))
+    _check(np.isfinite(rewards).all() and np.isfinite(costs).all(),
+           "sampled SAA: non-finite rewards or costs")
+    _check(all(c[i] == np.sort(c)[k] for c, i in zip(costs, chosen)),
+           "sampled SAA: the executed sample is not the median of the sorted costs")
+    return {"degenerate_max_rel": rel, "seconds_degenerate": s_saa,
+            "seconds_sampled": s_sampled, "ms_per_hour_degenerate": s_saa / n_steps * 1e3,
+            "ms_per_hour_sampled": s_sampled / n_steps * 1e3,
+            "sampled_cost": float(-rewards.astype(np.float64).sum()),
+            "picks": chosen.tolist()}
+
+
 def phase_kernel_vs_plain(sweep, device, rtol=1e-5, iters=5):
     """The kernel against its plain PyTorch version on the card, at the
     main-path shape and on every pymgrid25 scenario (1024 x 64 steps)."""
@@ -399,8 +539,8 @@ def main():
     print(f"main/engine sweep: {batch} x 2000 steps in {eng['seconds']:.4f} s, "
           f"{eng['steps_per_s']:.6g} env-steps/s, max rel vs kernel "
           f"{eng['max_rel_vs_kernel']:.3e} {tag}", flush=True)
-    gold = phase_golden(device)
-    print(f"main/golden: scenario 1 full year ({gold['steps']} steps, f64) bitwise "
+    gold = phase_golden(device, max_steps=2000)
+    print(f"main/golden: scenario 1, first {gold['steps']} steps of the year (f64) bitwise "
           f"in {gold['seconds']:.2f} s {tag}", flush=True)
     suite = phase_suite(device, 25, 20480, 1000)
     print(f"main/suite: 25 x 20480 x 1000 steps in {suite['seconds']:.4f} s, "
@@ -421,6 +561,32 @@ def main():
         print(f"envs/{name}: rollouts bitwise vs step loop; summed reward of 4 "
               f"replicas max rel {env['max_rel_vs_host']:.3e} vs host float64; "
               f"float64 on the card bitwise vs host env {tag}", flush=True)
+
+    # ---- on-device planners (no kernel of the port on their path) --------
+    sm = phase_suite_mpc(device)
+    print(f"planners/suite_mpc: 25 scenarios x 48 steps, H=24: float32 chip mode "
+          f"{sm['seconds32']:.2f} s ({sm['ms_per_hour32']:.1f} ms per simulated hour), "
+          f"float64 {sm['seconds64']:.2f} s ({sm['ms_per_hour64']:.1f} ms per hour); max rel "
+          f"gap f32 vs f64 {sm['max_rel_gap']:.3e} (scenarios 0, 4, 1: "
+          f"{sm['held_max_rel_gap']:.3e} < 2%) {tag}", flush=True)
+    print("planners/suite_mpc costs f32: " + json.dumps([round(c, 4) for c in sm["cost32"]]),
+          flush=True)
+    print("planners/suite_mpc costs f64: " + json.dumps([round(c, 4) for c in sm["cost64"]]),
+          flush=True)
+    bm = phase_batched_mpc(device)
+    print(f"planners/batched_mpc: scenario 1, 24 steps: float32 x 1024 replicas (bitwise "
+          f"equal) {bm['seconds32']:.2f} s ({bm['ms_per_hour32']:.1f} ms per hour), cost "
+          f"{bm['cost32']:.4f}, rel {bm['rel32']:.3e} vs float64; float64 x 1 with host "
+          f"fallback {bm['seconds64']:.2f} s ({bm['ms_per_hour64']:.1f} ms per hour), cost "
+          f"{bm['cost64']:.4f}, rel {bm['rel_host']:.3e} vs host HiGHS {bm['host_cost']:.4f}; "
+          f"fallback_count {bm['fallback_count']} {tag}", flush=True)
+    saa = phase_saa(device)
+    print(f"planners/saa: scenario 0, 24 steps: degenerate samples (float64) "
+          f"{saa['seconds_degenerate']:.2f} s ({saa['ms_per_hour_degenerate']:.1f} ms per "
+          f"hour), max rel {saa['degenerate_max_rel']:.3e} vs BatchedMPC; 10 sampled futures "
+          f"(float32) {saa['seconds_sampled']:.2f} s ({saa['ms_per_hour_sampled']:.1f} ms per "
+          f"hour), cost {saa['sampled_cost']:.4f}, picks {saa['picks']} at the sorted median "
+          f"{tag}", flush=True)
 
     # ---- kernel against its plain version (launches not counted) ---------
     kvp = phase_kernel_vs_plain(sweep, device)

@@ -27,11 +27,13 @@ from pymgrid_tpu_torch.core.tables import ensure_tables
 __all__ = ["normalize_to_superset", "build_suite", "SuiteRunner"]
 
 
-def build_suite(microgrids, dtype, device):
-    """One shared spec and config-stacked torch params (tables attached)."""
+def build_suite(microgrids, dtype, device, include_genset=True):
+    """One shared spec and config-stacked torch params (tables attached).
+    ``include_genset=False`` inserts no neutral genset, for a genset-free
+    group (as the JAX ``build_suite``)."""
     specs, params_list = [], []
     for mg in microgrids:
-        normalized = normalize_to_superset(mg)
+        normalized = normalize_to_superset(mg, include_genset=include_genset)
         spec, params, _ = extract_spec(normalized, dtype=numpy_dtype(dtype))
         specs.append(spec)
         params_list.append(params)

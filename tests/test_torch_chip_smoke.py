@@ -44,6 +44,24 @@ def test_env_phase_cpu(phase):
     assert out["step_loop_per_s"] > 0 and out["lean_rollout_per_s"] > 0
 
 
+def test_suite_mpc_phase_cpu():
+    """Scenarios 0-4 x 3 steps: float32 chip mode against float64."""
+    out = chip_smoke.phase_suite_mpc("cpu", n_scenarios=5, n_steps=3)
+    assert out["cost32"].shape == (5,) and out["held_max_rel_gap"] < 0.02
+    assert out["ms_per_hour32"] > 0
+
+
+def test_batched_mpc_phase_cpu():
+    """4 float32 replicas and the float64 host-fallback run, 2 steps."""
+    out = chip_smoke.phase_batched_mpc("cpu", batch=4, n_steps=2)
+    assert out["rel_host"] < 1e-4 and out["fallback_count"] == 0
+
+
+def test_saa_phase_cpu():
+    out = chip_smoke.phase_saa("cpu", n_steps=3, n_samples=4)
+    assert out["degenerate_max_rel"] < 1e-5 and len(out["picks"]) == 3
+
+
 def test_main_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:

@@ -13,6 +13,7 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import pymgrid_tpu
@@ -163,3 +164,27 @@ def test_suite_collect_matches_golden_all_scenarios():
                 golden[f"scenario_{n}_reward"][:n_steps],
                 err_msg=f"scenario {n}",
             )
+
+
+@pytest.mark.parametrize("include_genset", [False, True])
+def test_build_suite_include_genset_matches_jax(include_genset):
+    """``build_suite(..., include_genset=)`` against the JAX ``build_suite``
+    on scenario 0 (no genset): the same spec, and every JAX params leaf
+    bitwise in the port's (which also carries its step tables)."""
+    from pymgrid_tpu.parallel.suite import build_suite as jax_build_suite
+    from pymgrid_tpu_torch.parallel.suite import build_suite
+
+    mgs = lambda: [pymgrid_tpu.Microgrid.from_scenario(0)]
+    jspec, jparams = jax_build_suite(mgs(), dtype=np.float64, include_genset=include_genset)
+    spec, params = build_suite(mgs(), "float64", "cpu", include_genset=include_genset)
+    assert spec == jspec
+    assert spec.n_genset == (1 if include_genset else 0)
+
+    def compare(want, got, path):
+        if isinstance(want, dict):
+            for k in want:
+                compare(want[k], got[k], path + (k,))
+            return
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=str(path))
+
+    compare(jparams, params, ())
