@@ -1,6 +1,10 @@
 """pymgrid_tpu_torch: the PyTorch + CUDA port of the pymgrid_tpu engine.
 
-It runs the rule-based-control main path — scenario -> spec -> step tables ->
+A user starts at :meth:`Microgrid.from_scenario` (the numpy host layer:
+modules, microgrid, forecasters, host envs and controllers, the spec
+extraction and the legacy converters, each a copy of its counterpart in
+:mod:`pymgrid_tpu` with the same relative path) and hands the microgrid to
+the device side: the rule-based-control main path — spec -> step tables ->
 engine ``reset``/``step`` -> marginal-cost and priority-list policies -> time
 loops -> 25-config suite rollout — on PyTorch tensors, plus a hand-written CUDA
 kernel for the fused-horizon RBC sweep (:mod:`pymgrid_tpu_torch.ops`), and
@@ -10,16 +14,17 @@ on-device planners: batched LP solvers (:mod:`pymgrid_tpu_torch.core.lp`)
 under ``BatchedMPC``, ``SuiteMPC`` and ``BatchedSAA``
 (:mod:`pymgrid_tpu_torch.algos`).
 
-The numpy host layer of :mod:`pymgrid_tpu` (``Microgrid``, ``extract_spec``,
-``physics``, ``numpy_sum_compat``, the table layouts, ``normalize_to_superset``,
-the host ``RuleBasedControl`` and ``ModelPredictiveControl``, ``ruiz_scale``
-and the SAA sample generators) is imported, not copied.  Nothing here
-imports ``jax``.
+Nothing here imports ``jax`` or any module of :mod:`pymgrid_tpu`; the
+scenario data is read from the repository's ``pymgrid_tpu/data`` as files
+(:mod:`pymgrid_tpu_torch.paths`).
 
-Device and dtype are explicit on every public entry
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the CPU, and raise if there is no card; the dtype is explicit
 (:mod:`pymgrid_tpu_torch._device`): float64 is the parity mode, float32 the
 throughput mode.
 """
 from pymgrid_tpu_torch._device import resolve_device, torch_dtype
+from pymgrid_tpu_torch.microgrid import DEFAULT_HORIZON, Microgrid
+from pymgrid_tpu_torch.paths import PROJECT_PATH
 
-__all__ = ["resolve_device", "torch_dtype"]
+__all__ = ["Microgrid", "DEFAULT_HORIZON", "PROJECT_PATH", "resolve_device", "torch_dtype"]

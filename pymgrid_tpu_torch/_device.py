@@ -7,9 +7,10 @@
   multiplication by the reciprocal, 1 ulp off).
 * float32 is the throughput mode.
 
-``dtype`` is always passed by the caller and never derived from the device;
-``device`` is always passed too, and a CUDA device that is not there raises
-instead of falling back to the CPU.
+``dtype`` is always passed by the caller and never derived from the device.
+``device`` defaults to ``"cuda"`` on every entry point: the port runs on the
+card unless the caller asks for the CPU, and a CUDA device that is not there
+raises instead of falling back to the CPU.
 """
 import numpy as np
 import torch
@@ -37,11 +38,10 @@ def numpy_dtype(dtype):
     return _NUMPY[torch_dtype(dtype)]
 
 
-def resolve_device(device):
-    """``torch.device`` for ``device``; raises if it names a missing card."""
-    if device is None:
-        raise ValueError("device must be given explicitly (e.g. 'cpu' or 'cuda')")
-    device = torch.device(device)
+def resolve_device(device="cuda"):
+    """``torch.device`` for ``device`` (``None``: the card); raises if it
+    names a missing card."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return device

@@ -11,8 +11,8 @@ port's engine:
     -> balance repair -> engine step -> state'
 
 The LP is the host MPC's modular formulation: the block matrices, the
-static costs and the HiGHS fallback come from
-:class:`pymgrid_tpu.algos.mpc.ModelPredictiveControl` as they are.
+static costs and the HiGHS fallback come from the host
+:class:`pymgrid_tpu_torch.algos.mpc.ModelPredictiveControl` as they are.
 
 Layouts.  The engine's tensors are ``(C, B, ...)``, configs x replicas.  The
 LP tensors (``c``, ``b``, ``h``, solutions ``x``, patterns ``u``) put the
@@ -31,9 +31,9 @@ import time
 import numpy as np
 import torch
 
-from pymgrid_tpu.algos.mpc import ModelPredictiveControl
-from pymgrid_tpu.core.spec import extract_spec
 from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
+from pymgrid_tpu_torch.algos.mpc import ModelPredictiveControl
+from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.core.engine import _gather_window, make_reset_fn, make_step_fn
 from pymgrid_tpu_torch.core.lp import make_batched_box_ipm_solver, make_batched_ipm_solver
 from pymgrid_tpu_torch.core.params import (
@@ -96,7 +96,7 @@ class ProblemTemplate:
     template serves any params of its structure.
     """
 
-    def __init__(self, microgrid, iters=30, *, dtype, device, relax_genset=False,
+    def __init__(self, microgrid, iters=30, *, dtype, device="cuda", relax_genset=False,
                  matmul_precision="float32", build_solver=True, newton_refine=None,
                  solver_kind="ipm"):
         from scipy import sparse
@@ -474,7 +474,7 @@ class BatchedMPC:
     the JAX class; the engine's config axis is added and removed inside.
     """
 
-    def __init__(self, microgrid, batch_size=1, iters=30, *, dtype, device,
+    def __init__(self, microgrid, batch_size=1, iters=30, *, dtype, device="cuda",
                  relax_genset=False, enum_bits=5, enum_chunk=8, host_fallback=True,
                  residual_tol=None, repair_balance=True, outage_aware_repair=False,
                  matmul_precision="float32", newton_refine=None):

@@ -2,8 +2,8 @@
 batched program per simulated hour.
 
 Port of :mod:`pymgrid_tpu.algos.mpc_suite`.  Every scenario is normalized
-onto the superset module structure (the JAX package's numpy
-``normalize_to_superset``), so all horizon LPs share one block structure and
+onto the superset module structure
+(:func:`~pymgrid_tpu_torch.parallel.suite.normalize_to_superset`), so all horizon LPs share one block structure and
 differ only in matrix values and right-hand sides: one heterogeneous
 interior-point solve (:mod:`pymgrid_tpu_torch.core.lp`) covers all S
 scenarios, and the genset MILP enumeration solves each pattern chunk for all
@@ -19,14 +19,13 @@ call over all scenarios.  The controller per scenario is
 import numpy as np
 import torch
 
-from pymgrid_tpu.modules import GensetModule
-from pymgrid_tpu.parallel.suite import normalize_to_superset
 from pymgrid_tpu_torch._device import numpy_dtype
 from pymgrid_tpu_torch.algos.mpc_batched import ProblemTemplate, run_chunked, series_window
 from pymgrid_tpu_torch.core.engine import make_reset_fn, make_step_fn
 from pymgrid_tpu_torch.core.lp import make_batched_box_ipm_solver, make_batched_ipm_solver
 from pymgrid_tpu_torch.core.params import tree_map
-from pymgrid_tpu_torch.parallel.suite import build_suite
+from pymgrid_tpu_torch.modules import GensetModule
+from pymgrid_tpu_torch.parallel.suite import build_suite, normalize_to_superset
 
 __all__ = ["SuiteMPC"]
 
@@ -58,7 +57,7 @@ class SuiteMPC:
     States are dicts of ``(S, ...)`` leaves, step outputs ``(S,)``.
     """
 
-    def __init__(self, microgrids, iters=30, *, dtype, device, enum_bits=3,
+    def __init__(self, microgrids, iters=30, *, dtype, device="cuda", enum_bits=3,
                  enum_chunk=8, matmul_precision="float32", repair_balance=True,
                  newton_refine=None, solve_mode="triangular", enum_iters=None,
                  enum_refine=0, solver_kind="box", tie_break_eps=None):

@@ -9,7 +9,7 @@ picked (the sorted index ``floor(N * percentile)``, stable in ties as
 data.
 
 The samples come from the host
-:class:`~pymgrid_tpu.utils.data_generator.SampleGenerator` at construction
+:class:`~pymgrid_tpu_torch.utils.data_generator.SampleGenerator` at construction
 (or ``samples=``) and then live on the device as ``(N, T)`` series.  As in
 the JAX class, row 0 of each sample window is replaced by the realized data
 (saa.py:128), the window start clamps so the whole horizon fits (as
@@ -41,7 +41,7 @@ class BatchedSAA:
     """
 
     def __init__(self, microgrid, n_samples=10, optimal_percentile=0.5, iters=30, *,
-                 dtype, device, relax_genset=False, forecast_args=None,
+                 dtype, device="cuda", relax_genset=False, forecast_args=None,
                  sampling_args=None, samples=None, preset_to_use=None, enum_bits=5,
                  enum_chunk=8, matmul_precision="float32", newton_refine=None,
                  solver_kind="ipm"):
@@ -90,7 +90,7 @@ class BatchedSAA:
     def _generate_samples(microgrid, n_samples, forecast_args, sampling_args,
                           preset_to_use):
         """Host-side sampling via the legacy generators (construction time)."""
-        from pymgrid_tpu.utils.data_generator import SampleGenerator
+        from pymgrid_tpu_torch.utils.data_generator import SampleGenerator
 
         forecast_args = dict(forecast_args or {})
         if preset_to_use is not None:

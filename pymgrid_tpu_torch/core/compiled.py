@@ -9,16 +9,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from pymgrid_tpu.core.spec import extract_spec
 from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
 from pymgrid_tpu_torch.core.engine import check_supported, make_reset_fn, make_step_fn
 from pymgrid_tpu_torch.core.params import params_to_torch, with_config_axis
+from pymgrid_tpu_torch.core.spec import extract_spec
 
 __all__ = ["CompiledMicrogrid"]
 
 
 class CompiledMicrogrid:
-    def __init__(self, microgrid, dtype, device, numpy_rng_noise=False):
+    def __init__(self, microgrid, dtype, device="cuda", numpy_rng_noise=False):
         """``numpy_rng_noise``: replay the host's global-numpy-RNG gaussian
         forecast stream (snapshotted now) from a bank, so seeded
         gaussian-forecast trajectories equal the host bitwise."""
@@ -26,7 +26,7 @@ class CompiledMicrogrid:
         self.dtype = torch_dtype(dtype)
         spec, params, self._state0 = extract_spec(microgrid, dtype=numpy_dtype(dtype))
         if numpy_rng_noise:
-            from pymgrid_tpu.core.noise_bank import precompute_numpy_noise
+            from pymgrid_tpu_torch.core.noise_bank import precompute_numpy_noise
 
             banks = precompute_numpy_noise(microgrid, spec, numpy_dtype(dtype))
             if banks:

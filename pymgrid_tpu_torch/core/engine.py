@@ -6,9 +6,9 @@ Port of :mod:`pymgrid_tpu.core.engine`.  ``make_step_fn(spec)`` builds
 
 reproducing the host :meth:`Microgrid.run` three-phase dispatch with the same
 module order, the same balance summation trees
-(:func:`~pymgrid_tpu.core.numpy_sum.numpy_sum_compat`) and the same clipping
-and cost semantics (:mod:`pymgrid_tpu.core.physics`, run through the torch
-namespace :mod:`pymgrid_tpu_torch.core.xp`).
+(:func:`~pymgrid_tpu_torch.core.numpy_sum.numpy_sum_compat`) and the same
+clipping and cost semantics (:mod:`pymgrid_tpu_torch.core.physics`, run
+through the torch namespace :mod:`pymgrid_tpu_torch.core.xp`).
 
 Batching is written out: ``params`` leaves carry a leading config axis
 ``(C, ...)``, state and action leaves ``(C, B, ...)`` (configs x replicas), and
@@ -26,9 +26,9 @@ from typing import Any, NamedTuple
 
 import torch
 
-from pymgrid_tpu.core import physics
-from pymgrid_tpu.core.numpy_sum import numpy_sum_compat
-from pymgrid_tpu.core.tables import (
+from pymgrid_tpu_torch.core import physics
+from pymgrid_tpu_torch.core.numpy_sum import numpy_sum_compat
+from pymgrid_tpu_torch.core.tables import (
     logfc_table_layout,
     obs_table_layout,
     row_table_layout,

@@ -12,8 +12,8 @@ whose step came out non-finite and was thrown away).
 
 The host preparation (Ruiz scaling, column and row equilibration, the box
 row maps, the PDHG power iteration with ``RandomState(0)``) is the JAX
-module's numpy, run as it is.  ``lax.scan`` over iterations becomes a Python
-loop of eager ops; nothing inside a solve waits for the device:
+module's numpy, copied (:func:`ruiz_scale`) or rewritten here.  ``lax.scan``
+over iterations becomes a Python loop of eager ops; nothing inside a solve waits for the device:
 
 * ``torch.linalg.cholesky_ex`` does not check its result; where a
   factorization fails (``info`` not 0) every solve with that factor returns
@@ -38,7 +38,6 @@ import contextlib
 import numpy as np
 import torch
 
-from pymgrid_tpu.core.lp import ruiz_scale
 from pymgrid_tpu_torch._device import resolve_device, torch_dtype
 
 __all__ = [
@@ -47,6 +46,24 @@ __all__ = [
     "make_batched_ipm_solver",
     "make_batched_box_ipm_solver",
 ]
+
+
+def ruiz_scale(K, iters=10):
+    """Ruiz equilibration: diagonal row/col scalings D_r K D_c with rows and
+    columns brought toward unit infinity-norm."""
+    K = np.asarray(K, dtype=np.float64)
+    m, n = K.shape
+    d_r = np.ones(m)
+    d_c = np.ones(n)
+    M = K.copy()
+    for _ in range(iters):
+        row_norm = np.sqrt(np.maximum(np.abs(M).max(axis=1), 1e-12))
+        col_norm = np.sqrt(np.maximum(np.abs(M).max(axis=0), 1e-12))
+        d_r /= row_norm
+        d_c /= col_norm
+        M = K * d_r[:, None] * d_c[None, :]
+    return M, d_r, d_c
+
 
 _PRECISIONS = ("float32", "tensorfloat32", "bfloat16")
 
@@ -113,7 +130,7 @@ def _split_batch(c, S):
 
 def make_batched_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64, x_scale=None,
                             newton_refine=None, matmul_precision="float32",
-                            solve_mode="triangular", *, device):
+                            solve_mode="triangular", *, device="cuda"):
     """Batched Mehrotra predictor-corrector IPM in slack form,
     ``A [x; s] = [b; h]`` with ``A = [[K_eq, 0], [K_in, I]]``: the port of
     :func:`pymgrid_tpu.core.lp.make_batched_ipm_solver`, same arguments plus
@@ -265,7 +282,7 @@ def make_batched_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64, x_scale=None
 
 
 def make_batched_lp_solver(K_eq, K_in, iters=8000, restart_every=200,
-                           dtype=np.float32, *, device):
+                           dtype=np.float32, *, device="cuda"):
     """Batched PDHG with Ruiz scaling, per-problem primal weights and
     ergodic-average restarts every ``restart_every`` iterations: the port of
     :func:`pymgrid_tpu.core.lp.make_batched_lp_solver`, same arguments plus
@@ -333,7 +350,7 @@ def make_batched_lp_solver(K_eq, K_in, iters=8000, restart_every=200,
 
 def make_batched_box_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64,
                                 x_scale=None, newton_refine=None,
-                                matmul_precision="float32", *, device):
+                                matmul_precision="float32", *, device="cuda"):
     """Batched Mehrotra IPM on the box structure of the MPC LP: the port of
     :func:`pymgrid_tpu.core.lp.make_batched_box_ipm_solver`, same arguments
     plus ``device``.

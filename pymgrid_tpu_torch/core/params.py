@@ -1,7 +1,7 @@
 """Carrying the engine's params and states across to torch.
 
 ``params_to_torch`` turns the nested numpy dict of
-:func:`pymgrid_tpu.core.spec.extract_spec` (or a config-stacked suite dict)
+:func:`pymgrid_tpu_torch.core.spec.extract_spec` (or a config-stacked suite dict)
 into tensors on one device: float leaves take ``dtype``, integer leaves become
 int64 and bool leaves stay bool.  Every parameter then is a tensor on the
 operand's device, which keeps CUDA from rewriting a division by it into a

@@ -11,7 +11,7 @@ folding).
 import numpy as np
 import torch
 
-from pymgrid_tpu.core.tables import row_table_layout
+from pymgrid_tpu_torch.core.tables import row_table_layout
 from pymgrid_tpu_torch._device import resolve_device, torch_dtype
 from pymgrid_tpu_torch.core.engine import (
     StepOutput,
@@ -384,7 +384,7 @@ def make_marginal_cost_policy(spec):
 _KINDS = {"battery": 0, "genset": 1, "grid": 2}
 
 
-def make_table_policy(spec, priority_lists, device):
+def make_table_policy(spec, priority_lists, device="cuda"):
     """Compile ALL priority lists into one table-driven policy
     ``(params, state, action_idx) -> action``, ``action_idx`` a ``(C, B)``
     integer tensor (out-of-range indices clamp, as a JAX gather does).

@@ -1,6 +1,7 @@
-"""A torch array namespace for the shared :mod:`pymgrid_tpu.core.physics`.
+"""A torch array namespace for :mod:`pymgrid_tpu_torch.core.physics`.
 
-``physics`` is written against an ``xp`` namespace (numpy or jax.numpy).  This
+``physics`` (the host layer's, a copy of the JAX package's) is written
+against an ``xp`` namespace (numpy or jax.numpy in the original).  This
 module is that namespace for torch, so the physics runs unmodified with
 ``xp=pymgrid_tpu_torch.core.xp``.  Two torch habits need the shim:
 

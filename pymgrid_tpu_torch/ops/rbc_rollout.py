@@ -1,19 +1,24 @@
 """Fused-horizon RBC rollout: the hand-written CUDA kernel and its plain twin.
 
-``make_rbc_rollout(spec, params, n_steps, device)`` builds
+``make_rbc_rollout(spec, params, n_steps, device="cuda")`` builds
 ``rollout(init_charge (B,) f32) -> cumulative reward (B,) f32``: a whole
 ``n_steps`` horizon of the marginal-cost rule-based controller per replica,
 for one config, every replica starting at ``params["initial_step"]`` from its
 own battery charge (an init-charge sweep).
 
 * Replaces ``pymgrid_tpu/ops/pallas_rollout.py:make_pallas_rbc_rollout`` (same
-  contract and arithmetic; ``supported_spec`` is imported from there).  The
+  contract and arithmetic; :func:`supported_spec` is copied from there).  The
   kernel is ``pymgrid_tpu_torch/csrc/rbc_rollout.cu``, CUDA C++ for
-  ``sm_90a``: one thread per replica, state in registers for the horizon.
-* What bounds it on the H100: the serial per-step dependency chain (latency),
-  not bytes: each step reads 6 floats that every lane of a warp shares, and
-  nothing is written until the end.  Its design keeps ~31 warps per SM at
-  B = 131072 (256-thread blocks) to hide that latency.
+  ``sm_90a``: each thread steps a few replicas through the horizon with their
+  state in registers.
+* What bounds it on the H100: operations on a serial per-replica chain, not
+  bytes (one 32-byte row per step is shared by every replica, and nothing is
+  written until the end).  The design fixes the deploy order and the module
+  set at compile time (8 template variants, picked here by a variant code),
+  brings the rows into shared memory one chunk ahead with a bulk copy and
+  computes each row's replica-independent terms once per block, and
+  interleaves two independent replicas per thread (one with the genset) to
+  hide the chain's latency.
 * The deploy order and every module constant are fixed on the host from the
   ``t0`` prices, exactly as the Pallas kernel fixes them, and travel to the
   kernel in one small struct.
@@ -27,14 +32,30 @@ import ctypes
 import numpy as np
 import torch
 
-from pymgrid_tpu.core import physics
-from pymgrid_tpu.ops.pallas_rollout import supported_spec
 from pymgrid_tpu_torch._device import resolve_device
-from pymgrid_tpu_torch.core import xp
+from pymgrid_tpu_torch.core import physics, xp
 
-__all__ = ["make_rbc_rollout", "plain_rbc_rollout", "supported_spec", "RbcRollout"]
+__all__ = [
+    "make_rbc_rollout",
+    "plain_rbc_rollout",
+    "supported_spec",
+    "variant_code",
+    "RbcRollout",
+    "VARIANTS",
+]
 
-_KIND_CODE = {"battery": 0, "grid": 1, "genset": 2}
+# code -> deploy order; the switch in csrc/rbc_rollout.cu:rbc_rollout_launch
+# compiles one kernel for each
+VARIANTS = (
+    ("battery", "grid", "genset"),
+    ("battery", "genset", "grid"),
+    ("grid", "battery", "genset"),
+    ("grid", "genset", "battery"),
+    ("genset", "battery", "grid"),
+    ("genset", "grid", "battery"),
+    ("battery", "grid"),
+    ("grid", "battery"),
+)
 
 _FLOAT_FIELDS = (
     "min_cap", "max_cap", "max_charge", "max_discharge", "eff", "cycle",
@@ -43,8 +64,46 @@ _FLOAT_FIELDS = (
 )
 _INT_FIELDS = (
     "g_start_up", "g_wind_down", "g_abort", "g_init_status", "g_goal",
-    "has_genset", "t0", "n_steps", "n_order",
+    "t0", "n_steps",
 )
+_ERRORS = {-1: "unknown variant code", -2: "series rows not 16-byte aligned"}
+
+# Operations of one replica-step of the plain version, counted from
+# plain_rbc_rollout: each add, subtract, multiply, divide, min, max, compare,
+# select, logical op and int/float conversion counts one; negation and
+# absolute value are free.  Without the genset: battery bounds 6, two deploys
+# 14, battery dispatch 9, grid 5, balancing 14, accumulation 4.  The genset
+# adds 87 (next-status predictor 11, deploy 9, status machine 56, status
+# bounds and clip 7, cost 4).  A row's replica-independent terms take 5.  The
+# kernel's bound is their sum over a call at the card's float32 peak
+# (RbcRollout.bound_ms).
+OPS_PER_REPLICA_STEP = {False: 52, True: 139}
+OPS_PER_ROW = 5
+
+
+def supported_spec(spec):
+    """Covers the load+pv+battery[+genset][+grid]+balancing families —
+    every pymgrid25 shape (the genset machine runs branchless per lane;
+    grid-less configs get a zero-capacity neutral grid slot whose deploys
+    and rewards are exactly 0)."""
+    return (
+        spec.n_load == 1
+        and spec.n_renewable == 1
+        and spec.n_battery == 1
+        and spec.n_grid <= 1
+        and spec.n_genset <= 1
+        and spec.n_balancing == 1
+        and all(m.custom_fn is None for m in spec.modules)
+    )
+
+
+def variant_code(order):
+    """The kernel variant of a deploy order (raises on an order no variant
+    compiles)."""
+    try:
+        return VARIANTS.index(tuple(order))
+    except ValueError:
+        raise ValueError(f"no kernel variant for deploy order {order}") from None
 
 
 class RbcParams(ctypes.Structure):
@@ -53,7 +112,6 @@ class RbcParams(ctypes.Structure):
     _fields_ = (
         [(name, ctypes.c_float) for name in _FLOAT_FIELDS]
         + [(name, ctypes.c_int32) for name in _INT_FIELDS]
-        + [("order", ctypes.c_int32 * 3)]
     )
 
 
@@ -208,9 +266,17 @@ def plain_rbc_rollout(series, c, order, init_charge):
     return acc
 
 
+def _rows(load_ts, pv_ts, grid_ts):
+    """The kernel's input: ``(T, 8)`` float32 rows ``(load, pv, price_imp,
+    price_exp, co2, status, 0, 0)``, 32 bytes each."""
+    rows = np.zeros((load_ts.shape[0], 8), np.float32)
+    rows[:, 0], rows[:, 1], rows[:, 2:6] = load_ts, pv_ts, grid_ts
+    return rows
+
+
 def _bind(lib):
     fn = lib.rbc_rollout_launch
-    fn.argtypes = [ctypes.POINTER(RbcParams)] + [ctypes.c_void_p] * 5 + [
+    fn.argtypes = [ctypes.POINTER(RbcParams), ctypes.c_int] + [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -221,9 +287,12 @@ class RbcRollout:
     """``rollout(init_charge) -> cumulative reward`` for one config.
 
     ``launches`` counts kernel launches (plain-version calls do not count).
+    ``defines`` are ``-D`` flags for the kernel's build (its launch
+    configuration: ``RBC_THREADS``, ``RBC_REPLICAS``,
+    ``RBC_GENSET_REPLICAS``).
     """
 
-    def __init__(self, spec, params, n_steps, device):
+    def __init__(self, spec, params, n_steps, device="cuda", defines=()):
         if not supported_spec(spec):
             raise NotImplementedError(
                 "rbc rollout supports the load+pv+battery[+genset][+grid]"
@@ -233,20 +302,16 @@ class RbcRollout:
         load_ts, pv_ts, grid_ts, self.constants, self.order = _host_constants(
             spec, params, n_steps
         )
+        self.variant = variant_code(self.order)
         T = load_ts.shape[0]
         if self.constants["t0"] + n_steps > T:
             raise ValueError(f"initial_step + n_steps exceeds the {T} series rows")
-        self.series = tuple(
-            torch.as_tensor(np.ascontiguousarray(s), device=self.device)
-            for s in (load_ts, pv_ts, grid_ts)
-        )
+        self.rows = torch.as_tensor(_rows(load_ts, pv_ts, grid_ts), device=self.device)
+        self.series = (self.rows[:, 0], self.rows[:, 1], self.rows[:, 2:6])
         self.n_steps = n_steps
+        self.defines = tuple(defines)
         self.launches = 0
-        cp = RbcParams(**{k: self.constants[k] for k in _FLOAT_FIELDS + _INT_FIELDS[:-1]})
-        cp.n_order = len(self.order)
-        for i, kind in enumerate(self.order):
-            cp.order[i] = _KIND_CODE[kind]
-        self._cparams = cp
+        self._cparams = RbcParams(**{k: self.constants[k] for k in _FLOAT_FIELDS + _INT_FIELDS})
 
     def _check(self, init_charge):
         if not isinstance(init_charge, torch.Tensor):
@@ -258,16 +323,28 @@ class RbcRollout:
             )
         if not init_charge.is_contiguous():
             raise ValueError("init_charge must be contiguous")
-        if init_charge.device != self.series[0].device:
+        if init_charge.device != self.rows.device:
             raise ValueError(
                 f"init_charge is on {init_charge.device}, the rollout's series "
-                f"on {self.series[0].device}"
+                f"on {self.rows.device}"
             )
 
     def plain(self, init_charge):
         """The plain PyTorch version on ``init_charge``'s device."""
         self._check(init_charge)
         return plain_rbc_rollout(self.series, self.constants, self.order, init_charge)
+
+    def bound_ms(self, batch):
+        """The least time an H100 could take for one call on ``batch``
+        replicas: the larger of the bytes (the rows read, init_charge and
+        the output) at 3.35 TB/s and the operations
+        (:data:`OPS_PER_REPLICA_STEP`, :data:`OPS_PER_ROW`) at the float32
+        peak of 67 TFLOP/s; bound by operations at the main path's shapes."""
+        n = self.n_steps
+        nbytes = n * self.rows.shape[1] * 4 + 2 * batch * 4
+        ops = (batch * n * OPS_PER_REPLICA_STEP[bool(self.constants["has_genset"])]
+               + n * OPS_PER_ROW)
+        return max(nbytes / 3.35e12, ops / 67e12) * 1e3
 
     def __call__(self, init_charge):
         self._check(init_charge)
@@ -277,21 +354,21 @@ class RbcRollout:
             raise ValueError(f"unsupported device {init_charge.device}")
         from pymgrid_tpu_torch.ops._build import load_library
 
-        launch = _bind(load_library("rbc_rollout"))
+        launch = _bind(load_library("rbc_rollout", self.defines))
         out = torch.empty_like(init_charge)
-        load_ts, pv_ts, grid_ts = self.series
         stream = torch.cuda.current_stream(init_charge.device).cuda_stream
-        rc = launch(ctypes.byref(self._cparams), load_ts.data_ptr(), pv_ts.data_ptr(),
-                    grid_ts.data_ptr(), init_charge.data_ptr(), out.data_ptr(),
-                    init_charge.shape[0], stream)
+        rc = launch(ctypes.byref(self._cparams), self.variant, self.rows.data_ptr(),
+                    init_charge.data_ptr(), out.data_ptr(), init_charge.shape[0], stream)
         if rc != 0:
-            raise RuntimeError(f"rbc_rollout kernel launch failed: CUDA error {rc}")
+            raise RuntimeError(
+                f"rbc_rollout kernel launch failed: {_ERRORS.get(rc, f'CUDA error {rc}')}"
+            )
         self.launches += 1
         return out
 
 
-def make_rbc_rollout(spec, params, n_steps, device):
+def make_rbc_rollout(spec, params, n_steps, device="cuda", defines=()):
     """Build the fused-horizon RBC rollout for one config (numpy ``params``
-    from :func:`~pymgrid_tpu.core.spec.extract_spec`) with its series on
-    ``device``."""
-    return RbcRollout(spec, params, n_steps, device)
+    from :func:`~pymgrid_tpu_torch.core.spec.extract_spec`) with its series
+    on ``device``."""
+    return RbcRollout(spec, params, n_steps, device, defines)

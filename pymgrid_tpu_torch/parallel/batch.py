@@ -9,7 +9,6 @@ class's device mesh (``make_batch_mesh``, ``mesh=``) belongs to distribution
 """
 import torch
 
-from pymgrid_tpu.core.spec import extract_spec
 from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
 from pymgrid_tpu_torch.core.engine import (
     StepOutput,
@@ -23,6 +22,7 @@ from pymgrid_tpu_torch.core.params import (
     without_config_axis,
 )
 from pymgrid_tpu_torch.core.rollout import make_rollout_fn
+from pymgrid_tpu_torch.core.spec import extract_spec
 
 __all__ = ["BatchedMicrogrid"]
 
@@ -37,7 +37,7 @@ class BatchedMicrogrid:
     """``batch_size`` replicas of ``microgrid`` on ``device`` in ``dtype``
     (float64 for parity work, float32 for throughput)."""
 
-    def __init__(self, microgrid, batch_size, dtype, device, normalized_actions=False):
+    def __init__(self, microgrid, batch_size, dtype, device="cuda", normalized_actions=False):
         self.batch_size = batch_size
         self.device, self.dtype = resolve_device(device), torch_dtype(dtype)
         self.spec, params, _ = extract_spec(microgrid, dtype=numpy_dtype(dtype))

@@ -1,11 +1,11 @@
 """Vectorized RL environments over the engine.
 
 Port of :mod:`pymgrid_tpu.parallel.batched_env`.  ``BatchedDiscreteEnv`` is
-the batched analog of :class:`~pymgrid_tpu.envs.DiscreteMicrogridEnv`: B
+the batched analog of :class:`~pymgrid_tpu_torch.envs.DiscreteMicrogridEnv`: B
 replicas step in lockstep, integer actions index a priority-list table
 (:func:`~pymgrid_tpu_torch.core.rollout.make_table_policy`) and episodes
 auto-reset.  ``BatchedContinuousEnv`` is the analog of
-:class:`~pymgrid_tpu.envs.ContinuousMicrogridEnv`: ``(B, action_dim)``
+:class:`~pymgrid_tpu_torch.envs.ContinuousMicrogridEnv`: ``(B, action_dim)``
 actions in [0, 1] in the env's flattened layout (sorted module names, genset
 rows [goal, production]), denormalized by the engine like the host env's
 ``run(action, normalized=True)``.
@@ -29,7 +29,6 @@ outputs bitwise.
 import numpy as np
 import torch
 
-from pymgrid_tpu.core.spec import extract_spec
 from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
 from pymgrid_tpu_torch.core.engine import (
     StepOutput,
@@ -43,6 +42,7 @@ from pymgrid_tpu_torch.core.params import (
     without_config_axis,
 )
 from pymgrid_tpu_torch.core.rollout import make_table_policy, select_state
+from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.core.tables import ensure_tables
 from pymgrid_tpu_torch.parallel.batch import drop_config_axis
 
@@ -187,7 +187,7 @@ class BatchedDiscreteEnv(_BatchedEnv):
     _action_tail = ()
     _action_dtype = torch.int64
 
-    def __init__(self, env, batch_size, dtype, device, auto_reset=True):
+    def __init__(self, env, batch_size, dtype, device="cuda", auto_reset=True):
         super().__init__(env, batch_size, dtype, device, auto_reset)
         self.n_actions = env.action_space.n
         self._policy = make_table_policy(
@@ -206,7 +206,7 @@ class BatchedContinuousEnv(_BatchedEnv):
 
     _normalized = True
 
-    def __init__(self, env, batch_size, dtype, device, auto_reset=True):
+    def __init__(self, env, batch_size, dtype, device="cuda", auto_reset=True):
         super().__init__(env, batch_size, dtype, device, auto_reset)
         by_module = {(ref.name, ref.num): ref for ref in self.spec.controllable}
         self._segments, offset = [], 0     # (kind, slot, offset, width)

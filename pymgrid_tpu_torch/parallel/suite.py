@@ -1,11 +1,10 @@
 """Heterogeneous config batching: the whole pymgrid25 suite in one batch.
 
 Port of :mod:`pymgrid_tpu.parallel.suite`.  Every scenario is normalized onto
-the superset structure by the JAX package's numpy
-:func:`~pymgrid_tpu.parallel.suite.normalize_to_superset` (neutral modules
-for absent kinds contribute exactly +/-0.0), so all configs share one
-:class:`~pymgrid_tpu.core.spec.MicrogridSpec`; params stack along a leading
-config axis and the engine steps ``(C, B)`` = configs x replicas at once.
+the superset structure by :func:`normalize_to_superset` (numpy, copied from
+the JAX package: neutral modules for absent kinds contribute exactly +/-0.0),
+so all configs share one :class:`~pymgrid_tpu_torch.core.spec.MicrogridSpec`;
+params stack along a leading config axis and the engine steps ``(C, B)`` = configs x replicas at once.
 
 Episode starts are an explicit ``(C, B)`` input: the JAX runner draws them
 from ``jax.random`` keys, which torch cannot reproduce, so the port takes
@@ -14,11 +13,11 @@ seeded ``torch.Generator``).  Only the per-step path is ported; the JAX
 runner's block-prefetch mode is a TPU gather optimisation left for later
 (ROADMAP.md A15).  Collected outputs come back as ``(C, B, T, ...)``.
 """
+import numpy as np
 import torch
 
-from pymgrid_tpu.core.spec import extract_spec
-from pymgrid_tpu.parallel.suite import normalize_to_superset
 from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
+from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.core.engine import StepOutput, make_reset_fn, make_step_fn
 from pymgrid_tpu_torch.core.params import params_to_torch, stack_configs
 from pymgrid_tpu_torch.core.rollout import select_state
@@ -26,8 +25,105 @@ from pymgrid_tpu_torch.core.tables import ensure_tables
 
 __all__ = ["normalize_to_superset", "build_suite", "SuiteRunner"]
 
+_CANONICAL_ORDER = ("load", "renewable", "balancing", "battery", "genset", "grid")
 
-def build_suite(microgrids, dtype, device, include_genset=True):
+
+def _neutral_grid(T, horizon, forecaster, initial_step=0, final_step=-1):
+    from pymgrid_tpu_torch.modules import GridModule
+
+    ts = np.zeros((T, 4))
+    ts[:, 3] = 1.0  # always up; zero prices/co2; zero import/export capacity
+    return GridModule(
+        max_import=0.0,
+        max_export=0.0,
+        time_series=ts,
+        forecaster=forecaster,
+        forecast_horizon=horizon,
+        initial_step=initial_step,
+        final_step=final_step,
+    )
+
+
+def _neutral_genset(initial_step=0):
+    from pymgrid_tpu_torch.modules import GensetModule
+
+    return GensetModule(
+        running_min_production=0.0,
+        running_max_production=0.0,
+        genset_cost=0.0,
+        initial_step=initial_step,
+    )
+
+
+def normalize_to_superset(microgrid, horizon=None, include_genset=True):
+    """Rebuild ``microgrid`` with modules in canonical order, inserting
+    neutral modules for absent kinds.  Returns a new host Microgrid.
+
+    ``include_genset=False`` skips the neutral-genset insertion — used when
+    a whole suite group is genset-free, so the shared LP/engine structure
+    carries no dead genset slot (and MPC needs no MILP enumeration)."""
+    import warnings
+
+    from pymgrid_tpu_torch.microgrid import Microgrid
+    from pymgrid_tpu_torch.modules import (
+        BatteryModule,
+        GensetModule,
+        GridModule,
+        LoadModule,
+        RenewableModule,
+        UnbalancedEnergyModule,
+    )
+
+    kind_of = {
+        LoadModule: "load",
+        RenewableModule: "renewable",
+        UnbalancedEnergyModule: "balancing",
+        BatteryModule: "battery",
+        GensetModule: "genset",
+        GridModule: "grid",
+    }
+
+    by_kind = {}
+    T, h = None, horizon
+    initial_step, final_step = 0, -1
+    for name, modules in microgrid.modules.iterdict():
+        for module in modules:
+            kind = kind_of[type(module)]
+            if kind in by_kind:
+                raise ValueError(
+                    f"Suite batching supports one module per kind; duplicate {kind}."
+                )
+            by_kind[kind] = (name, module)
+            if hasattr(module, "time_series"):
+                T = len(module)
+                initial_step = module.initial_step
+                final_step = module.final_step
+                if h is None:
+                    h = module.forecast_horizon
+
+    forecaster = "oracle" if h else None
+    ordered = []
+    for kind in _CANONICAL_ORDER:
+        if kind in by_kind:
+            ordered.append(by_kind[kind])
+        elif kind == "grid":
+            ordered.append(
+                ("grid", _neutral_grid(T, h or 0, forecaster, initial_step, final_step))
+            )
+        elif kind == "genset":
+            if not include_genset:
+                continue
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                ordered.append(("genset", _neutral_genset(initial_step)))
+        else:
+            raise ValueError(f"Microgrid missing required module kind {kind}.")
+
+    return Microgrid(ordered, add_unbalanced_module=False)
+
+
+
+def build_suite(microgrids, dtype, device="cuda", include_genset=True):
     """One shared spec and config-stacked torch params (tables attached).
     ``include_genset=False`` inserts no neutral genset, for a genset-free
     group (as the JAX ``build_suite``)."""
@@ -52,7 +148,7 @@ def build_suite(microgrids, dtype, device, include_genset=True):
 class SuiteRunner:
     """Run ``batch_per_config`` replicas of each config in lockstep."""
 
-    def __init__(self, microgrids, batch_per_config, dtype, device):
+    def __init__(self, microgrids, batch_per_config, dtype, device="cuda"):
         self.device = resolve_device(device)
         self.dtype = torch_dtype(dtype)
         self.spec, self.params = build_suite(microgrids, self.dtype, self.device)

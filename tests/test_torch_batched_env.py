@@ -3,7 +3,8 @@ the host envs (CPU, float64).
 
 The patterns of tests/test_parallel.py and tests/test_batched_env.py, without
 the mesh cases.  Inputs are made from a seed with numpy and handed to both
-packages; every comparison is bitwise (eager PyTorch rounds each op once,
+packages, each building its microgrids and host envs with its own host layer
+(the host reference is the JAX package's); every comparison is bitwise (eager PyTorch rounds each op once,
 like numpy and like the JAX engine under the repo's pre-FMA CPU flags).
 """
 import jax
@@ -12,16 +13,21 @@ import pytest
 import torch
 
 import pymgrid_tpu
-import pymgrid_tpu.modules as M
+import pymgrid_tpu.modules as JM
+import pymgrid_tpu_torch
+import pymgrid_tpu_torch.modules as M
 from helpers.factories import build_microgrid, module_params
-from pymgrid_tpu.algos import RuleBasedControl
+from pymgrid_tpu.algos import RuleBasedControl as JaxRuleBasedControl
 from pymgrid_tpu.core.rollout import make_priority_policy as jax_priority_policy
-from pymgrid_tpu.envs import ContinuousMicrogridEnv, DiscreteMicrogridEnv
+from pymgrid_tpu.envs import ContinuousMicrogridEnv as JaxContinuousMicrogridEnv
+from pymgrid_tpu.envs import DiscreteMicrogridEnv as JaxDiscreteMicrogridEnv
 from pymgrid_tpu.parallel import BatchedContinuousEnv as JaxContinuousEnv
 from pymgrid_tpu.parallel import BatchedDiscreteEnv as JaxDiscreteEnv
 from pymgrid_tpu.parallel import BatchedMicrogrid as JaxBatchedMicrogrid
+from pymgrid_tpu_torch.algos import RuleBasedControl
 from pymgrid_tpu_torch.core.params import state_to_torch
 from pymgrid_tpu_torch.core.rollout import make_priority_policy
+from pymgrid_tpu_torch.envs import ContinuousMicrogridEnv, DiscreteMicrogridEnv
 from pymgrid_tpu_torch.parallel import (
     BatchedContinuousEnv,
     BatchedDiscreteEnv,
@@ -39,8 +45,10 @@ def _eq(ours, want, msg=""):
     np.testing.assert_array_equal(ours, np.asarray(want), err_msg=msg)
 
 
-def _modules(seed, **kwargs):
-    mods, _ = build_microgrid(M, module_params(seed=seed, **kwargs))
+def _modules(seed, ns=M, **kwargs):
+    """The factory microgrid's modules from ``ns``: the port's modules, or
+    the JAX package's (``JM``)."""
+    mods, _ = build_microgrid(ns, module_params(seed=seed, **kwargs))
     return mods
 
 
@@ -74,11 +82,10 @@ def _compare_env_runs(jenv, env, host_env, actions, host_action):
 
 
 def test_discrete_env_matches_jax_and_host():
-    mods = _modules(31)
-    host = DiscreteMicrogridEnv(mods)
+    host = JaxDiscreteMicrogridEnv(_modules(31, JM))
     env = BatchedDiscreteEnv(DiscreteMicrogridEnv(_modules(31)), batch_size=2,
                              dtype="float64", device="cpu")
-    jenv = JaxDiscreteEnv(DiscreteMicrogridEnv(_modules(31)), batch_size=2,
+    jenv = JaxDiscreteEnv(JaxDiscreteMicrogridEnv(_modules(31, JM)), batch_size=2,
                           dtype=np.float64)
     assert env.n_actions == jenv.n_actions and env.obs_dim == jenv.obs_dim
     seq = np.random.RandomState(0).randint(env.n_actions, size=25)
@@ -87,10 +94,10 @@ def test_discrete_env_matches_jax_and_host():
 
 
 def test_continuous_env_matches_jax_and_host():
-    host = ContinuousMicrogridEnv(_modules(47))
+    host = JaxContinuousMicrogridEnv(_modules(47, JM))
     env = BatchedContinuousEnv(ContinuousMicrogridEnv(_modules(47)), batch_size=2,
                                dtype="float64", device="cpu")
-    jenv = JaxContinuousEnv(ContinuousMicrogridEnv(_modules(47)), batch_size=2,
+    jenv = JaxContinuousEnv(JaxContinuousMicrogridEnv(_modules(47, JM)), batch_size=2,
                             dtype=np.float64)
     assert env.action_dim == jenv.action_dim == host.action_space.shape[0]
     actions = np.random.RandomState(3).rand(25, 2, env.action_dim)
@@ -218,7 +225,7 @@ def test_discrete_shared_rollout_matches_jax(scenario):
     rollout on the pymgrid25 scenarios (obs and log rows included)."""
     env = BatchedDiscreteEnv(DiscreteMicrogridEnv.from_scenario(scenario), batch_size=6,
                              dtype="float64", device="cpu")
-    jenv = JaxDiscreteEnv(DiscreteMicrogridEnv.from_scenario(scenario), batch_size=6,
+    jenv = JaxDiscreteEnv(JaxDiscreteMicrogridEnv.from_scenario(scenario), batch_size=6,
                           dtype=np.float64)
     seq = np.random.RandomState(0).randint(env.n_actions, size=(30, 6))
     jfinal, want = jenv.rollout(jenv.reset(seed=0), seq, keep_logs=True)
@@ -232,7 +239,7 @@ def test_discrete_shared_rollout_matches_jax(scenario):
 def test_continuous_shared_rollout_matches_jax():
     env = BatchedContinuousEnv(ContinuousMicrogridEnv.from_scenario(1), batch_size=5,
                                dtype="float64", device="cpu")
-    jenv = JaxContinuousEnv(ContinuousMicrogridEnv.from_scenario(1), batch_size=5,
+    jenv = JaxContinuousEnv(JaxContinuousMicrogridEnv.from_scenario(1), batch_size=5,
                             dtype=np.float64)
     seq = np.random.RandomState(1).rand(25, 5, env.action_dim)
     _, want = jenv.rollout(jenv.reset(seed=0), seq, keep_logs=True)
@@ -246,23 +253,26 @@ def test_large_action_space_matches_jax():
     stays O(n_positions x n_controllable) and equals the JAX env."""
     rng = np.random.RandomState(3)
     T = 60
-    mods = lambda: [
-        M.LoadModule(time_series=60 * rng.rand(T), forecast_horizon=0),
-        M.RenewableModule(time_series=40 * rng.rand(T), forecast_horizon=0),
-        M.GridModule(max_import=150, max_export=150,
-                     time_series=rng.rand(T, 3), forecast_horizon=0),
-        M.GensetModule(running_min_production=5, running_max_production=40,
-                       genset_cost=0.5),
+    load, pv, grid = 60 * rng.rand(T), 40 * rng.rand(T), rng.rand(T, 3)
+    mods = lambda ns: [
+        ns.LoadModule(time_series=load, forecast_horizon=0),
+        ns.RenewableModule(time_series=pv, forecast_horizon=0),
+        ns.GridModule(max_import=150, max_export=150, time_series=grid,
+                      forecast_horizon=0),
+        ns.GensetModule(running_min_production=5, running_max_production=40,
+                        genset_cost=0.5),
     ] + [
-        M.BatteryModule(min_capacity=0, max_capacity=80, max_charge=40,
-                        max_discharge=40, efficiency=0.9, init_soc=0.5)
+        ns.BatteryModule(min_capacity=0, max_capacity=80, max_charge=40,
+                         max_discharge=40, efficiency=0.9, init_soc=0.5)
         for _ in range(4)
     ]
     with pytest.warns(UserWarning, match="large action space"):
-        host = DiscreteMicrogridEnv(mods())
+        host = DiscreteMicrogridEnv(mods(M))
+    with pytest.warns(UserWarning, match="large action space"):
+        jhost = JaxDiscreteMicrogridEnv(mods(JM))
     assert host.action_space.n > 1000
     env = BatchedDiscreteEnv(host, batch_size=4, dtype="float64", device="cpu")
-    jenv = JaxDiscreteEnv(host, batch_size=4, dtype=np.float64)
+    jenv = JaxDiscreteEnv(jhost, batch_size=4, dtype=np.float64)
     jstates, states = jenv.reset(seed=0), env.reset(seed=0)
     for t, a in enumerate([[0, 1, 7, 1337], [1439, 720, 3, 64], [5, 5, 900, 0]]):
         jstates, jout = jenv.step(jstates, np.array(a))
@@ -277,7 +287,7 @@ def test_jax_state_handover():
     both continue: they agree bitwise."""
     env = BatchedDiscreteEnv(DiscreteMicrogridEnv.from_scenario(1), batch_size=4,
                              dtype="float64", device="cpu")
-    jenv = JaxDiscreteEnv(DiscreteMicrogridEnv.from_scenario(1), batch_size=4,
+    jenv = JaxDiscreteEnv(JaxDiscreteMicrogridEnv.from_scenario(1), batch_size=4,
                           dtype=np.float64)
     rng = np.random.RandomState(5)
     jstates = jenv.reset(seed=0)
@@ -297,14 +307,15 @@ def test_jax_state_handover():
 def test_batched_microgrid_matches_jax_and_host():
     """Replica-major rollouts of BatchedMicrogrid equal the JAX class's (all
     collected fields) and every replica equals the host RBC."""
-    mg = pymgrid_tpu.Microgrid(_modules(29))
-    rbc = RuleBasedControl(mg)
-    host_rewards = RuleBasedControl(mg).run(max_steps=60)[("balance", 0, "reward")].values
+    jrbc = JaxRuleBasedControl(pymgrid_tpu.Microgrid(_modules(29, JM)))
+    host_rewards = JaxRuleBasedControl(pymgrid_tpu.Microgrid(_modules(29, JM))).run(
+        max_steps=60)[("balance", 0, "reward")].values
+    rbc = RuleBasedControl(pymgrid_tpu_torch.Microgrid(_modules(29)))
 
     batched = BatchedMicrogrid(rbc.microgrid, batch_size=3, dtype="float64", device="cpu")
-    jbatched = JaxBatchedMicrogrid(rbc.microgrid, batch_size=3, dtype=np.float64)
+    jbatched = JaxBatchedMicrogrid(jrbc.microgrid, batch_size=3, dtype=np.float64)
     policy = make_priority_policy(batched.spec, rbc.priority_list)
-    jpolicy = jax_priority_policy(jbatched.spec, rbc.priority_list)
+    jpolicy = jax_priority_policy(jbatched.spec, jrbc.priority_list)
 
     final, outs = batched.rollout(policy, 60, seed=0, auto_reset=False, collect=True)
     jfinal, want = jbatched.rollout(jpolicy, 60, seed=0, auto_reset=False, collect=True)
@@ -321,8 +332,8 @@ def test_batched_microgrid_matches_jax_and_host():
 
 
 def test_batched_microgrid_step_and_auto_reset():
-    mg = pymgrid_tpu.Microgrid(_modules(29, timesteps=20))
-    rbc = RuleBasedControl(mg)
+    rbc = RuleBasedControl(pymgrid_tpu_torch.Microgrid(_modules(29, timesteps=20)))
+    jrbc = JaxRuleBasedControl(pymgrid_tpu.Microgrid(_modules(29, JM, timesteps=20)))
     batched = BatchedMicrogrid(rbc.microgrid, batch_size=2, dtype="float64", device="cpu")
     policy = make_priority_policy(batched.spec, rbc.priority_list)
     final, (rewards, dones) = batched.rollout(policy, 45, seed=0, auto_reset=True,
@@ -332,7 +343,7 @@ def test_batched_microgrid_step_and_auto_reset():
     assert int(final["step"].max()) <= 20
 
     # step(): (B, ...) states and actions in, (B, ...) outputs out
-    jbatched = JaxBatchedMicrogrid(rbc.microgrid, batch_size=2, dtype=np.float64)
+    jbatched = JaxBatchedMicrogrid(jrbc.microgrid, batch_size=2, dtype=np.float64)
     spec = batched.spec
     rng = np.random.RandomState(4)
     action = {"battery": 20 * rng.randn(2, spec.n_battery),

@@ -8,11 +8,11 @@ import numpy as np
 import pytest
 import torch
 
-import pymgrid_tpu.modules as M
+import pymgrid_tpu_torch.modules as M
 from helpers.factories import build_microgrid, module_params
-from pymgrid_tpu import Microgrid
-from pymgrid_tpu.envs import ContinuousMicrogridEnv, DiscreteMicrogridEnv
+from pymgrid_tpu_torch import Microgrid
 from pymgrid_tpu_torch.core.compiled import CompiledMicrogrid
+from pymgrid_tpu_torch.envs import ContinuousMicrogridEnv, DiscreteMicrogridEnv
 from pymgrid_tpu_torch.parallel import BatchedContinuousEnv, BatchedDiscreteEnv
 from pymgrid_tpu_torch.utils.checkpoint import restore_state, save_state
 

@@ -35,6 +35,16 @@ def test_kernel_sweep_phase_cpu():
     assert out["rollout"].launches == 0
 
 
+def test_kernel_vs_plain_phase_cpu():
+    """The kernel phase's checks and its variant table at tiny sizes (on the
+    CPU the wrapper takes the plain version on both sides)."""
+    sweep = chip_smoke.phase_kernel_sweep("cpu", batch=16, n_steps=12)
+    out = chip_smoke.phase_kernel_vs_plain(sweep, "cpu", genset_batch=8, genset_steps=30)
+    assert len(out["variants"]) == 25 and out["variants"][0] == 6
+    assert out["genset_variant"] == 0 and out["max_abs_err"] == 0.0
+    assert out["bound_ms"] > 0
+
+
 @pytest.mark.parametrize("phase", ["phase_discrete_env", "phase_continuous_env"])
 def test_env_phase_cpu(phase):
     """The env phases at 8 replicas x 12 steps: their rollout-vs-loop,

@@ -1,13 +1,14 @@
 """Tests that need a CUDA card: the port's CUDA kernels against their plain
 PyTorch versions.  They skip without a card; on a machine with one, run
-``python -m pytest tests/test_torch_cuda.py -m cuda``.  This file imports no
-JAX, so it runs where only the port is installed."""
+``python -m pytest tests/test_torch_cuda.py -m cuda``.  This file imports
+nothing of JAX or the JAX package, so it runs where only the port is
+installed."""
 import numpy as np
 import pytest
 import torch
 
-import pymgrid_tpu
-from pymgrid_tpu.core.spec import extract_spec
+from pymgrid_tpu_torch import Microgrid
+from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.ops import make_rbc_rollout
 
 pytestmark = pytest.mark.cuda
@@ -25,8 +26,7 @@ def cuda():
 @pytest.mark.parametrize("scenario", [0, 1])
 def test_rbc_rollout_kernel_matches_plain(cuda, scenario):
     n_steps, B = 500, 3000  # B not a multiple of the block: the ragged tail
-    spec, params, _ = extract_spec(pymgrid_tpu.Microgrid.from_scenario(scenario),
-                                   dtype=np.float32)
+    spec, params, _ = extract_spec(Microgrid.from_scenario(scenario), dtype=np.float32)
     pb = params["battery"]
     init = torch.linspace(float(pb["min_capacity"][0]), float(pb["max_capacity"][0]),
                           B, dtype=torch.float32, device=cuda)
@@ -36,6 +36,15 @@ def test_rbc_rollout_kernel_matches_plain(cuda, scenario):
     assert rollout.launches == 1
     want = rollout.plain(init)
     assert rollout.launches == 1
-    # the kernel is built with --fmad=false in the plain version's op order;
-    # rtol 1e-5 is the float32 bound of tests/test_pallas_rollout.py
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
+    # the kernel is built with --fmad=false and IEEE division in the plain
+    # version's op order: bitwise
+    assert torch.equal(got, want)
+
+
+def test_rbc_rollout_unknown_variant_raises(cuda):
+    spec, params, _ = extract_spec(Microgrid.from_scenario(0), dtype=np.float32)
+    rollout = make_rbc_rollout(spec, params, 10, cuda)
+    rollout.variant = 8   # no variant of the launcher's switch
+    with pytest.raises(RuntimeError, match="unknown variant"):
+        rollout(torch.zeros(4, device=cuda))
+    assert rollout.launches == 0

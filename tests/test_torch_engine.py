@@ -1,9 +1,12 @@
 """The port's tables, reset and step against the JAX engine and the host
 layer (CPU, float64).
 
-Inputs are made from a seed with numpy and handed to both packages.  Every
-comparison is bitwise: eager PyTorch rounds each op once, like numpy and like
-the JAX engine under the repo's pre-FMA CPU flags (tests/conftest.py).
+Inputs are made from a seed with numpy and handed to both packages: each
+builds its own microgrid and spec with its own host layer (the port's copy
+equals the JAX package's bitwise, tests/test_torch_host_layer.py), and numpy
+arrays pass between them.  Every comparison is bitwise: eager PyTorch rounds
+each op once, like numpy and like the JAX engine under the repo's pre-FMA CPU
+flags (tests/conftest.py).
 """
 import itertools
 
@@ -14,18 +17,20 @@ import pytest
 import torch
 
 import pymgrid_tpu
-import pymgrid_tpu.modules as M
+import pymgrid_tpu.modules as JM
+import pymgrid_tpu_torch
+import pymgrid_tpu_torch.modules as M
 from helpers.factories import build_microgrid, module_params
 from helpers.modular_microgrid import get_modular_microgrid
-from pymgrid_tpu import Microgrid
-from pymgrid_tpu.core import physics
+from pymgrid_tpu.core import physics as jax_physics
 from pymgrid_tpu.core.engine import make_reset_fn as jax_reset_fn
 from pymgrid_tpu.core.engine import make_step_fn as jax_step_fn
-from pymgrid_tpu.core.spec import extract_spec
+from pymgrid_tpu.core.spec import extract_spec as jax_extract_spec
 from pymgrid_tpu.core.tables import build_tables as jax_build_tables
 from pymgrid_tpu.core.tables import ensure_tables as jax_ensure_tables
 from pymgrid_tpu.parallel.suite import build_suite as jax_build_suite
-from pymgrid_tpu_torch.core import xp
+from pymgrid_tpu_torch import Microgrid
+from pymgrid_tpu_torch.core import physics, xp
 from pymgrid_tpu_torch.core.compiled import CompiledMicrogrid
 from pymgrid_tpu_torch.core.engine import make_reset_fn, make_step_fn
 from pymgrid_tpu_torch.core.params import (
@@ -34,6 +39,7 @@ from pymgrid_tpu_torch.core.params import (
     tree_map,
     with_config_axis,
 )
+from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.core.tables import build_tables, ensure_tables
 from pymgrid_tpu_torch.parallel.suite import build_suite
 
@@ -44,10 +50,18 @@ def _eq(ours, want, msg=""):
     np.testing.assert_array_equal(np.asarray(ours), np.asarray(want), err_msg=msg)
 
 
+def _specs(scenario):
+    """``(spec, params)`` of the port and of the JAX package for a scenario,
+    each from its own host layer."""
+    spec, params, _ = extract_spec(Microgrid.from_scenario(scenario))
+    jspec, jparams, _ = jax_extract_spec(pymgrid_tpu.Microgrid.from_scenario(scenario))
+    return spec, params, jspec, jparams
+
+
 @pytest.mark.parametrize("scenario", [0, 1])
 def test_build_tables_bitwise(scenario):
-    spec, params, _ = extract_spec(pymgrid_tpu.Microgrid.from_scenario(scenario))
-    want = jax_build_tables(spec, jax.tree.map(jnp.asarray, params))
+    spec, params, jspec, jparams = _specs(scenario)
+    want = jax_build_tables(jspec, jax.tree.map(jnp.asarray, jparams))
     ours = build_tables(spec, params_to_torch(params, "cpu", "float64"))
     for name in ("step_table", "logfc_table"):
         assert ours[name].shape == want[name].shape, name
@@ -55,9 +69,9 @@ def test_build_tables_bitwise(scenario):
 
 
 def test_build_tables_config_axis_bitwise():
-    mgs = lambda: [pymgrid_tpu.Microgrid.from_scenario(n) for n in (0, 1, 4)]
-    _, want = jax_build_suite(mgs(), dtype=np.float64)
-    _, ours = build_suite(mgs(), "float64", "cpu")
+    _, want = jax_build_suite([pymgrid_tpu.Microgrid.from_scenario(n) for n in (0, 1, 4)],
+                              dtype=np.float64)
+    _, ours = build_suite([Microgrid.from_scenario(n) for n in (0, 1, 4)], "float64", "cpu")
     for name in ("step_table", "logfc_table"):
         assert ours[name].shape == np.asarray(want[name]).shape
         assert ours[name].shape[0] == 3
@@ -84,19 +98,20 @@ def _random_actions(rng, spec, params, B, normalized):
     }
 
 
-def _compare_steps(spec, params, rng, B, n_steps, normalized, tables, max_start):
+def _compare_steps(specs, rng, B, n_steps, normalized, tables, max_start):
     """Reset B replicas at random starts in both engines, then step both with
     the same numpy-random actions, comparing every output and the next state
     bitwise at every step."""
+    spec, params, jspec, jparams = specs
     starts = rng.randint(0, max_start, size=B).astype(np.int32)
-    jparams = jax.tree.map(jnp.asarray, params)
+    jparams = jax.tree.map(jnp.asarray, jparams)
     if tables:
-        jparams = jax_ensure_tables(spec, jparams)
+        jparams = jax_ensure_tables(jspec, jparams)
     keys = jax.random.split(jax.random.PRNGKey(0), B)
-    jstate = jax.jit(jax.vmap(jax_reset_fn(spec), in_axes=(None, 0, 0)))(
+    jstate = jax.jit(jax.vmap(jax_reset_fn(jspec), in_axes=(None, 0, 0)))(
         jparams, keys, jnp.asarray(starts)
     )
-    jstep = jax.jit(jax.vmap(jax_step_fn(spec, normalized=normalized),
+    jstep = jax.jit(jax.vmap(jax_step_fn(jspec, normalized=normalized),
                              in_axes=(None, 0, 0)))
 
     tparams = params_to_torch(params, "cpu", "float64")
@@ -133,8 +148,7 @@ CASES = [(0, False, False), (0, True, True), (1, False, True), (1, True, False)]
 
 @pytest.mark.parametrize("scenario,normalized,tables", CASES)
 def test_reset_and_step_bitwise(scenario, normalized, tables):
-    spec, params, _ = extract_spec(pymgrid_tpu.Microgrid.from_scenario(scenario))
-    _compare_steps(spec, params, np.random.RandomState(100 + scenario), B=4,
+    _compare_steps(_specs(scenario), np.random.RandomState(100 + scenario), B=4,
                    n_steps=50, normalized=normalized, tables=tables, max_start=8700)
 
 
@@ -149,22 +163,26 @@ def test_user_bank_forecaster_step_bitwise(tables):
     of the 60-step series cover the off-end revert and the index clamps."""
     rng = np.random.RandomState(64)
     T = 60
-    mg = Microgrid([
-        M.BatteryModule(min_capacity=10, max_capacity=100, max_charge=50,
-                        max_discharge=50, efficiency=0.9,
-                        battery_cost_cycle=0.02, init_soc=0.5),
-        ("pv", M.RenewableModule(time_series=50 * rng.rand(T),
-                                 forecaster=_noisy_user_forecast,
-                                 forecast_horizon=4)),
-        M.LoadModule(time_series=60 * rng.rand(T), forecaster="oracle",
-                     forecast_horizon=4),
-        M.GridModule(max_import=100, max_export=100, time_series=rng.rand(T, 3),
-                     forecaster="oracle", forecast_horizon=4),
-    ])
-    np.random.seed(1234)
-    spec, params, _ = extract_spec(mg)
-    assert any(m.forecaster == "user_bank" for m in spec.log_order)
-    _compare_steps(spec, params, rng, B=3, n_steps=12, normalized=False,
+    pv, load, grid = 50 * rng.rand(T), 60 * rng.rand(T), rng.rand(T, 3)
+
+    def spec_of(pkg, ns, extract):
+        mg = pkg.Microgrid([
+            ns.BatteryModule(min_capacity=10, max_capacity=100, max_charge=50,
+                             max_discharge=50, efficiency=0.9,
+                             battery_cost_cycle=0.02, init_soc=0.5),
+            ("pv", ns.RenewableModule(time_series=pv, forecaster=_noisy_user_forecast,
+                                      forecast_horizon=4)),
+            ns.LoadModule(time_series=load, forecaster="oracle", forecast_horizon=4),
+            ns.GridModule(max_import=100, max_export=100, time_series=grid,
+                          forecaster="oracle", forecast_horizon=4),
+        ])
+        np.random.seed(1234)
+        return extract(mg)[:2]
+
+    specs = (spec_of(pymgrid_tpu_torch, M, extract_spec)
+             + spec_of(pymgrid_tpu, JM, jax_extract_spec))
+    assert any(m.forecaster == "user_bank" for m in specs[0].log_order)
+    _compare_steps(specs, rng, B=3, n_steps=12, normalized=False,
                    tables=tables, max_start=T - 1)
 
 
@@ -174,11 +192,11 @@ def test_user_bank_forecaster_step_bitwise(tables):
 ])
 def test_compiled_microgrid_matches_host(config):
     """CompiledMicrogrid's initial_state / action_to_arrays / step / log_frame
-    against the host Microgrid.run, bitwise (float64)."""
+    against the JAX package's host Microgrid.run, bitwise (float64)."""
     params = module_params(seed=7, **config)
-    mods, _ = build_microgrid(M, params)
-    mg = Microgrid(mods)
-    compiled = CompiledMicrogrid(mg, dtype="float64", device="cpu")
+    mg = pymgrid_tpu.Microgrid(build_microgrid(JM, params)[0])
+    compiled = CompiledMicrogrid(Microgrid(build_microgrid(M, params)[0]),
+                                 dtype="float64", device="cpu")
     state = compiled.initial_state()
     np.random.seed(3)
     rows = []
@@ -199,8 +217,8 @@ def test_compiled_microgrid_matches_host(config):
 
 def test_numpy_noise_bank_run_compiled_matches_host():
     """Seeded gaussian forecasts replayed from the numpy-RNG noise bank:
-    the port's run_compiled equals the host RBC run bitwise, through the
-    data end (the truncated off-end draws)."""
+    the port's run_compiled equals the JAX package's host RBC run bitwise,
+    through the data end (the truncated off-end draws)."""
     from pymgrid_tpu.algos import RuleBasedControl as HostRuleBasedControl
     from pymgrid_tpu_torch.algos import RuleBasedControl
 
@@ -208,8 +226,19 @@ def test_numpy_noise_bank_run_compiled_matches_host():
     mg.set_forecaster(0.1, forecast_horizon=5)
     np.random.seed(1234)
     host_log = HostRuleBasedControl(mg).run()
+    ours = Microgrid([   # get_modular_microgrid's modules, from the port
+        M.GensetModule(running_min_production=10, running_max_production=50,
+                       genset_cost=0.5),
+        M.BatteryModule(min_capacity=0, max_capacity=100, max_charge=50,
+                        max_discharge=50, efficiency=1.0, init_soc=0.5),
+        M.RenewableModule(time_series=50 * np.ones(100)),
+        M.LoadModule(time_series=60 * np.ones(100)),
+        M.GridModule(max_import=100, max_export=0, time_series=np.ones((100, 3)),
+                     raise_errors=True),
+    ])
+    ours.set_forecaster(0.1, forecast_horizon=5)
     np.random.seed(1234)
-    log = RuleBasedControl(mg).run_compiled(device="cpu", numpy_rng_noise=True)
+    log = RuleBasedControl(ours).run_compiled(device="cpu", numpy_rng_noise=True)
     assert list(log.columns) == list(host_log.columns)
     _eq(log.values.astype(float), host_log.values.astype(float))
 
@@ -225,10 +254,10 @@ def _valid_state(cur, goal, up, down, sut, wdt):
 
 @pytest.mark.parametrize("allow_abortion", [True, False])
 def test_physics_shim_genset_machine_exhaustive(allow_abortion):
-    """The shared physics run through the torch namespace gives the numpy
-    physics' transition on every reachable state (the case grid of
-    tests/test_genset_machine.py, whose numpy physics is held against the
-    reference machine there)."""
+    """The port's physics run through the torch namespace gives the JAX
+    package's numpy physics' transition on every reachable state (the case
+    grid of tests/test_genset_machine.py, whose numpy physics is held against
+    the reference machine there)."""
     cases = []
     for sut, wdt in itertools.product(range(4), range(4)):
         for cur, goal, g in itertools.product((0, 1), (0, 1), (0, 1)):
@@ -241,21 +270,21 @@ def test_physics_shim_genset_machine_exhaustive(allow_abortion):
     got = physics.genset_update_status(
         *[as_t(c) for c in cols], torch.tensor(allow_abortion), xp=xp
     )
-    want = physics.genset_update_status(*cols, np.bool_(allow_abortion), xp=np)
+    want = jax_physics.genset_update_status(*cols, np.bool_(allow_abortion), xp=np)
     for g_, w_ in zip(got, want):
         assert g_.dtype == torch.int32
         _eq(g_.numpy(), w_)
 
     cur, _, up, down, g = (as_t(c) for c in cols[:5])
     _eq(physics.genset_next_status(cur, up, down, g, xp=xp).numpy(),
-        physics.genset_next_status(*(cols[i] for i in (0, 2, 3, 4)), xp=np))
+        jax_physics.genset_next_status(*(cols[i] for i in (0, 2, 3, 4)), xp=np))
     # the traps the shim exists for: scalar first operands
     _eq(physics.battery_max_production(
             torch.tensor([5.0, 1.0], dtype=torch.float64), 2.0, 1.5, 0.9, xp=xp).numpy(),
-        physics.battery_max_production(np.array([5.0, 1.0]), 2.0, 1.5, 0.9))
+        jax_physics.battery_max_production(np.array([5.0, 1.0]), 2.0, 1.5, 0.9))
     _eq(physics.battery_max_consumption(
             torch.tensor([5.0, 9.5], dtype=torch.float64), 10.0, 2.0, 0.9, xp=xp).numpy(),
-        physics.battery_max_consumption(np.array([5.0, 9.5]), 10.0, 2.0, 0.9))
+        jax_physics.battery_max_consumption(np.array([5.0, 9.5]), 10.0, 2.0, 0.9))
     _eq(physics.round_half_even(torch.tensor([0.5, 1.5, 2.5, -0.5]), xp=xp).numpy(),
         np.round(np.array([0.5, 1.5, 2.5, -0.5], np.float32)))
 
@@ -266,15 +295,18 @@ def test_reward_shapers_match_jax_and_host(shaper):
     shaped column) against the JAX step and the host ``Microgrid.run``,
     bitwise (the pattern of tests/test_engine_equivalence.py)."""
     from pymgrid_tpu.core.compiled import CompiledMicrogrid as JaxCompiledMicrogrid
-    from pymgrid_tpu.microgrid import reward_shaping
+    from pymgrid_tpu.microgrid import reward_shaping as jax_reward_shaping
+    from pymgrid_tpu_torch.microgrid import reward_shaping
 
-    def make():
-        mods, _ = build_microgrid(M, module_params(seed=41))
-        return Microgrid(mods, reward_shaping_func=getattr(reward_shaping, shaper)())
+    def make(pkg, ns, shaping):
+        mods, _ = build_microgrid(ns, module_params(seed=41))
+        return pkg.Microgrid(mods, reward_shaping_func=getattr(shaping, shaper)())
 
-    mg = make()
-    compiled = CompiledMicrogrid(make(), dtype="float64", device="cpu")
-    jcompiled = JaxCompiledMicrogrid(make(), dtype=np.float64)
+    mg = make(pymgrid_tpu, JM, jax_reward_shaping)
+    compiled = CompiledMicrogrid(make(pymgrid_tpu_torch, M, reward_shaping),
+                                 dtype="float64", device="cpu")
+    jcompiled = JaxCompiledMicrogrid(make(pymgrid_tpu, JM, jax_reward_shaping),
+                                     dtype=np.float64)
     assert compiled.spec.shaper is not None
     state, jstate = compiled.initial_state(), jcompiled.initial_state(seed=3)
     np.random.seed(17)
@@ -296,20 +328,20 @@ def test_reward_shapers_match_jax_and_host(shaper):
 def test_obs_layout_env_matches_jax(tables):
     """``obs_layout="env"`` concatenates segments in sorted-name order, as the
     JAX step does; scenario 1 has names out of order in the container."""
-    spec, params, _ = extract_spec(pymgrid_tpu.Microgrid.from_scenario(1))
+    spec, params, jspec, jparams = _specs(1)
     assert [r.name for r in spec.log_order] != sorted(r.name for r in spec.log_order)
-    jparams = jax.tree.map(jnp.asarray, params)
+    jparams = jax.tree.map(jnp.asarray, jparams)
     tparams = params_to_torch(params, "cpu", "float64")
     if tables:
-        jparams = jax_ensure_tables(spec, jparams)
+        jparams = jax_ensure_tables(jspec, jparams)
         tparams = ensure_tables(spec, tparams)
     tparams = with_config_axis(tparams)
     rng = np.random.RandomState(9)
     starts = rng.randint(0, 8700, size=3).astype(np.int32)
     keys = jax.random.split(jax.random.PRNGKey(0), 3)
-    jstate = jax.vmap(jax_reset_fn(spec), in_axes=(None, 0, 0))(jparams, keys,
-                                                               jnp.asarray(starts))
-    jstep = jax.jit(jax.vmap(jax_step_fn(spec, obs_layout="env"), in_axes=(None, 0, 0)))
+    jstate = jax.vmap(jax_reset_fn(jspec), in_axes=(None, 0, 0))(jparams, keys,
+                                                                jnp.asarray(starts))
+    jstep = jax.jit(jax.vmap(jax_step_fn(jspec, obs_layout="env"), in_axes=(None, 0, 0)))
     state = make_reset_fn(spec)(tparams, torch.as_tensor(starts).view(1, 3))
     step = make_step_fn(spec, obs_layout="env")
     for t in range(5):

@@ -1,4 +1,5 @@
-"""The port imports and steps with JAX unavailable, and never imports it."""
+"""The port imports and steps with JAX and the JAX package unavailable, and
+never imports either."""
 import os
 import re
 import subprocess
@@ -14,7 +15,8 @@ torch.set_num_threads(1)
 
 _SCRIPT = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["jax"] = None          # any `import jax` now raises ImportError,
+sys.modules["pymgrid_tpu"] = None  # and so does any import of the JAX package
 import torch
 import pymgrid_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pymgrid_tpu_torch.__path__,
@@ -28,12 +30,15 @@ for name in ("pymgrid_tpu_torch.parallel.batch", "pymgrid_tpu_torch.parallel.bat
              "pymgrid_tpu_torch.algos.saa_batched"):
     assert name in names, name
 
-import pymgrid_tpu
-from pymgrid_tpu.envs import DiscreteMicrogridEnv
+from pymgrid_tpu_torch import Microgrid
+from pymgrid_tpu_torch.envs import DiscreteMicrogridEnv
 from pymgrid_tpu_torch.parallel import BatchedDiscreteEnv
 from pymgrid_tpu_torch.core.compiled import CompiledMicrogrid
-mg = CompiledMicrogrid(pymgrid_tpu.Microgrid.from_scenario(0), dtype="float64",
-                       device="cpu")
+for n in (0, 1):
+    scenario = Microgrid.from_scenario(n)
+    assert type(scenario).__module__ == "pymgrid_tpu_torch.microgrid.microgrid"
+    assert len(scenario) == 8760
+mg = CompiledMicrogrid(Microgrid.from_scenario(0), dtype="float64", device="cpu")
 state, out = mg.step(mg.reset(), mg.zero_action())
 assert out.obs.shape == (1, 1, mg.spec.obs_dim)
 assert torch.isfinite(out.reward).all() and int(state["step"]) == 1
@@ -42,10 +47,12 @@ env = BatchedDiscreteEnv(DiscreteMicrogridEnv.from_scenario(1), batch_size=3,
 _, outs = env.rollout(env.reset(), [[0, 1, 2]] * 4, shared_step=True)
 assert outs.obs.shape == (4, 3, env.obs_dim) and torch.isfinite(outs.reward).all()
 from pymgrid_tpu_torch.algos import BatchedMPC
-mpc = BatchedMPC(pymgrid_tpu.Microgrid.from_scenario(0), batch_size=2, iters=3,
+mpc = BatchedMPC(Microgrid.from_scenario(0), batch_size=2, iters=3,
                  dtype="float64", device="cpu", host_fallback=False)
 rewards, _ = mpc.run_scanned(2)
 assert rewards.shape == (2, 2)
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "pymgrid_tpu")
+            and sys.modules[m] is not None]
 print("OK", len(names))
 """
 
@@ -56,11 +63,17 @@ def test_port_imports_and_steps_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 20  # every module was walked
+    assert int(proc.stdout.split()[1]) >= 60  # every module was walked, the host layer too
 
 
 def test_no_file_of_the_port_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|optax|orbax)\b", re.M)
+    """No line of the port or of chip_smoke.py, at any indentation, imports
+    jax, optax, orbax or the JAX package."""
+    pattern = re.compile(r"^\s*(import|from)\s+((jax|optax|orbax)\b|pymgrid_tpu(\.|\s|$))",
+                         re.M)
+    assert pattern.search("    from pymgrid_tpu.core import physics")
+    assert pattern.search("import pymgrid_tpu")
+    assert not pattern.search("from pymgrid_tpu_torch.core import physics")
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]

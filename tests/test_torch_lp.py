@@ -12,9 +12,9 @@ import pytest
 import torch
 from scipy.optimize import linprog
 
-import pymgrid_tpu
-from pymgrid_tpu.algos import ModelPredictiveControl
 from pymgrid_tpu.core import lp as jlp
+from pymgrid_tpu_torch import Microgrid
+from pymgrid_tpu_torch.algos import ModelPredictiveControl
 from pymgrid_tpu_torch.core import lp as tlp
 
 torch.set_num_threads(1)
@@ -49,8 +49,8 @@ def _objective(info):
 
 @pytest.fixture(scope="module")
 def mpc_problem():
-    """Scenario 0's first horizon LP, as the host MPC builds it."""
-    host = ModelPredictiveControl(pymgrid_tpu.Microgrid.from_scenario(0))
+    """Scenario 0's first horizon LP, as the port's host MPC builds it."""
+    host = ModelPredictiveControl(Microgrid.from_scenario(0))
     host.microgrid.reset()
     host._set_parameters(*host._get_modular_state_values())
     K_eq = np.asarray(host._A_eq.todense())
@@ -232,8 +232,13 @@ def test_matmul_precision_variants():
 
 
 def test_solvers_need_an_explicit_device():
+    """The solvers run on the card unless given ``device="cpu"``: with no
+    device given and no card, they raise instead of falling back to the CPU."""
     K_eq, K_in, *_ = _random_lps()
     for factory in (tlp.make_batched_ipm_solver, tlp.make_batched_box_ipm_solver,
                     tlp.make_batched_lp_solver):
-        with pytest.raises(TypeError, match="device"):
+        if torch.cuda.is_available():
             factory(K_eq, np.eye(30))
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                factory(K_eq, np.eye(30))

@@ -20,6 +20,7 @@ import torch
 from jax import lax
 
 import pymgrid_tpu
+import pymgrid_tpu_torch
 from pymgrid_tpu.algos import ModelPredictiveControl
 from pymgrid_tpu.algos import mpc_jax
 from pymgrid_tpu.core.engine import make_reset_fn as jax_reset_fn
@@ -36,6 +37,12 @@ CHARGE_FRACTIONS = (0.1, 0.5, 0.9, 0.35)
 
 
 def _mg(n):
+    """Scenario ``n`` from the port's host layer."""
+    return pymgrid_tpu_torch.Microgrid.from_scenario(n)
+
+
+def _jmg(n):
+    """Scenario ``n`` from the JAX package's host layer."""
     return pymgrid_tpu.Microgrid.from_scenario(n)
 
 
@@ -49,7 +56,7 @@ def assert_closed_loop_close(got, want, what):
 
 
 def _host_cost(n, steps):
-    log = ModelPredictiveControl(_mg(n)).run(max_steps=steps)
+    log = ModelPredictiveControl(_jmg(n)).run(max_steps=steps)
     return -log[("balance", 0, "reward")].sum()
 
 
@@ -57,7 +64,7 @@ def _host_cost(n, steps):
 def _templates(n):
     """The JAX and port templates of scenario ``n``, and the same states in
     both: steps ``T_CASES``, charges at ``CHARGE_FRACTIONS`` of capacity."""
-    jt = mpc_jax.ProblemTemplate(_mg(n), dtype=np.float64)
+    jt = mpc_jax.ProblemTemplate(_jmg(n), dtype=np.float64)
     tt = ProblemTemplate(_mg(n), dtype="float64", device="cpu")
     cap = float(np.asarray(jt.params["battery"]["max_capacity"])[jt.battery_ref.slot])
     charges = [f * cap for f in CHARGE_FRACTIONS]
@@ -208,7 +215,7 @@ def test_genset_refiner_matches_jax_and_is_chunk_invariant(genset_templates):
 @pytest.fixture(scope="module")
 def scenario0_runs():
     steps = 24
-    jb = mpc_jax.BatchedMPC(_mg(0), batch_size=1, dtype=np.float64)
+    jb = mpc_jax.BatchedMPC(_jmg(0), batch_size=1, dtype=np.float64)
     want, _ = jb.run(steps)
     tb = BatchedMPC(_mg(0), batch_size=3, dtype="float64", device="cpu")
     got, states = tb.run(steps)
@@ -251,7 +258,7 @@ def test_host_fallback_on_starved_iterates():
                          residual_tol=1e-5)
     r_starved, _ = starved.run(5)
     assert starved.fallback_count == 5
-    jax_starved = mpc_jax.BatchedMPC(_mg(0), batch_size=1, dtype=np.float64, iters=2,
+    jax_starved = mpc_jax.BatchedMPC(_jmg(0), batch_size=1, dtype=np.float64, iters=2,
                                      residual_tol=1e-5)
     r_jax, _ = jax_starved.run(5)
     assert jax_starved.fallback_count == starved.fallback_count
@@ -263,7 +270,7 @@ def test_host_fallback_on_starved_iterates():
 def test_jax_state_continues_in_the_port():
     """A JAX ``BatchedMPC`` state after 5 steps, carried over with
     ``state_to_torch``, continues in the port to JAX's own rewards."""
-    jb = mpc_jax.BatchedMPC(_mg(0), batch_size=2, dtype=np.float64, host_fallback=False)
+    jb = mpc_jax.BatchedMPC(_jmg(0), batch_size=2, dtype=np.float64, host_fallback=False)
     states = jb.reset()
     for _ in range(5):
         states, _, _ = jb.step(states)
@@ -281,7 +288,12 @@ def test_jax_state_continues_in_the_port():
 
 
 def test_constructors_need_dtype_and_device():
+    """``dtype`` has no default; ``device`` defaults to the card and raises
+    where there is none, with no fallback to the CPU."""
     with pytest.raises(TypeError):
         BatchedMPC(_mg(0), batch_size=1)
-    with pytest.raises(TypeError):
-        ProblemTemplate(_mg(0), dtype="float64")
+    if torch.cuda.is_available():
+        assert ProblemTemplate(_mg(0), dtype="float64").device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ProblemTemplate(_mg(0), dtype="float64")

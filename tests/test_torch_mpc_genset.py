@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import pymgrid_tpu
+import pymgrid_tpu_torch
 from pymgrid_tpu.algos import ModelPredictiveControl
 from pymgrid_tpu.algos import mpc_jax
 from pymgrid_tpu_torch.algos import BatchedMPC
@@ -30,7 +31,8 @@ FALLBACK_COUNT = 0   # the port's CPU run of this case; chip_smoke.py checks it
 @pytest.fixture(scope="module")
 def genset_runs():
     mg = lambda: pymgrid_tpu.Microgrid.from_scenario(1)
-    tb = BatchedMPC(mg(), batch_size=1, dtype="float64", device="cpu")
+    tb = BatchedMPC(pymgrid_tpu_torch.Microgrid.from_scenario(1), batch_size=1,
+                    dtype="float64", device="cpu")
     got, states = tb.run(STEPS)
     jb = mpc_jax.BatchedMPC(mg(), batch_size=1, dtype=np.float64)
     want, _ = jb.run(STEPS)

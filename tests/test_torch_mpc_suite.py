@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import pymgrid_tpu
+import pymgrid_tpu_torch
 from pymgrid_tpu.algos.mpc_suite import SuiteMPC as JaxSuiteMPC
 from pymgrid_tpu_torch.algos import BatchedMPC, SuiteMPC
 from test_torch_mpc import assert_closed_loop_close
@@ -22,6 +23,12 @@ SCENARIOS = [0, 4, 1]   # grid only, grid only, genset + weak grid
 
 
 def _mgs(scenarios=SCENARIOS):
+    """The scenarios from the port's host layer."""
+    return [pymgrid_tpu_torch.Microgrid.from_scenario(n) for n in scenarios]
+
+
+def _jmgs(scenarios=SCENARIOS):
+    """The scenarios from the JAX package's host layer."""
     return [pymgrid_tpu.Microgrid.from_scenario(n) for n in scenarios]
 
 
@@ -29,7 +36,7 @@ def _mgs(scenarios=SCENARIOS):
 def suite_runs():
     T = 20
     kw = dict(enum_bits=2, enum_chunk=4)
-    want, _ = JaxSuiteMPC(_mgs(), dtype=np.float64, **kw).run_scanned(T, chunk=T)
+    want, _ = JaxSuiteMPC(_jmgs(), dtype=np.float64, **kw).run_scanned(T, chunk=T)
     suite = SuiteMPC(_mgs(), dtype="float64", device="cpu", **kw)
     got, states = suite.run_scanned(T, chunk=7)
     solo = np.stack([
@@ -70,7 +77,7 @@ def test_tie_break_and_slack_solver_match_jax(solver_kind, scenarios):
     neutral genset slot, no enumeration)."""
     T = 8
     kw = dict(enum_bits=2, enum_chunk=4, tie_break_eps=1e-3, solver_kind=solver_kind)
-    want, _ = JaxSuiteMPC(_mgs(scenarios), dtype=np.float64, **kw).run_scanned(T, chunk=T)
+    want, _ = JaxSuiteMPC(_jmgs(scenarios), dtype=np.float64, **kw).run_scanned(T, chunk=T)
     suite = SuiteMPC(_mgs(scenarios), dtype="float64", device="cpu", **kw)
     got, _ = suite.run_scanned(T)
     assert suite.include_genset == (1 in scenarios)

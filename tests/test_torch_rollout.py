@@ -1,4 +1,5 @@
-"""The port's policies and time loops against the JAX package (CPU, float64).
+"""The port's policies and time loops against the JAX package (CPU, float64);
+each package builds its inputs with its own host layer.
 
 Reward streams are compared bitwise: both engines round every op once and
 sum balances in numpy's order.  ``run_compiled`` is held against the recorded
@@ -13,13 +14,15 @@ import pytest
 import torch
 
 import pymgrid_tpu
-from pymgrid_tpu.algos import RuleBasedControl as HostRuleBasedControl
+from pymgrid_tpu.algos import RuleBasedControl as JaxRuleBasedControl
 from pymgrid_tpu.core import rollout as jro
 from pymgrid_tpu.core.engine import make_reset_fn as jax_reset_fn
-from pymgrid_tpu.core.spec import extract_spec
+from pymgrid_tpu.core.spec import extract_spec as jax_extract_spec
 from pymgrid_tpu.core.tables import ensure_tables as jax_ensure_tables
+from pymgrid_tpu_torch import Microgrid
 from pymgrid_tpu_torch.algos import RuleBasedControl
 from pymgrid_tpu_torch.core import rollout as tro
+from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.core.engine import make_reset_fn
 from pymgrid_tpu_torch.core.params import params_to_torch, with_config_axis
 from pymgrid_tpu_torch.core.tables import ensure_tables
@@ -30,14 +33,16 @@ FIXTURE = Path(__file__).parent / "fixtures" / "golden_rbc.npz"
 
 
 def _setup(scenario, tables):
-    mg = pymgrid_tpu.Microgrid.from_scenario(scenario)
-    spec, params, _ = extract_spec(mg)
-    jparams = jax.tree.map(jnp.asarray, params)
+    """The scenario's spec and params in both packages, each from its own
+    host layer: ``(spec, jspec, jparams, tparams)``."""
+    spec, params, _ = extract_spec(Microgrid.from_scenario(scenario))
+    jspec, jparams, _ = jax_extract_spec(pymgrid_tpu.Microgrid.from_scenario(scenario))
+    jparams = jax.tree.map(jnp.asarray, jparams)
     tparams = params_to_torch(params, "cpu", "float64")
     if tables:
-        jparams = jax_ensure_tables(spec, jparams)
+        jparams = jax_ensure_tables(jspec, jparams)
         tparams = ensure_tables(spec, tparams)
-    return mg, spec, jparams, with_config_axis(tparams)
+    return spec, jspec, jparams, with_config_axis(tparams)
 
 
 # (scenario, policy, step tables attached, auto_reset): scenario 1 has a
@@ -49,15 +54,16 @@ def _setup(scenario, tables):
 ])
 def test_rollout_fn_rewards_bitwise(scenario, policy, tables):
     n_steps, start = 60, 8730
-    mg, spec, jparams, tparams = _setup(scenario, tables)
+    spec, jspec, jparams, tparams = _setup(scenario, tables)
     if policy == "priority":
-        plist = HostRuleBasedControl(mg).priority_list
-        jpol, tpol = jro.make_priority_policy(spec, plist), tro.make_priority_policy(spec, plist)
+        jplist = JaxRuleBasedControl(pymgrid_tpu.Microgrid.from_scenario(scenario)).priority_list
+        plist = RuleBasedControl(Microgrid.from_scenario(scenario)).priority_list
+        jpol, tpol = jro.make_priority_policy(jspec, jplist), tro.make_priority_policy(spec, plist)
     else:
-        jpol, tpol = jro.make_marginal_cost_policy(spec), tro.make_marginal_cost_policy(spec)
+        jpol, tpol = jro.make_marginal_cost_policy(jspec), tro.make_marginal_cost_policy(spec)
 
-    jstate = jax.jit(jax_reset_fn(spec))(jparams, jax.random.PRNGKey(0), start)
-    jfn = jro.make_rollout_fn(spec, jpol, n_steps, auto_reset=True, collect=False)
+    jstate = jax.jit(jax_reset_fn(jspec))(jparams, jax.random.PRNGKey(0), start)
+    jfn = jro.make_rollout_fn(jspec, jpol, n_steps, auto_reset=True, collect=False)
     _, (jrewards, jdones) = jfn(jparams, jstate)
 
     state = make_reset_fn(spec)(tparams, torch.tensor([[start]]))
@@ -72,15 +78,15 @@ def test_rollout_fn_rewards_bitwise(scenario, policy, tables):
 def test_lockstep_sweep_matches_jax():
     """A 64-replica init-charge sweep of scenario 1 (genset, weak grid)."""
     B, n_steps = 64, 120
-    _, spec, jparams, tparams = _setup(1, tables=True)
+    spec, jspec, jparams, tparams = _setup(1, tables=True)
     pb = jparams["battery"]
     init = np.linspace(float(pb["min_capacity"][0]), float(pb["max_capacity"][0]), B)
 
     keys = jax.random.split(jax.random.PRNGKey(0), B)
-    jstates = jax.jit(jax.vmap(jax_reset_fn(spec), in_axes=(None, 0)))(jparams, keys)
+    jstates = jax.jit(jax.vmap(jax_reset_fn(jspec), in_axes=(None, 0)))(jparams, keys)
     jstates = {**jstates, "battery_charge": jnp.asarray(init)[:, None]}
-    jsweep = jro.make_lockstep_sweep_fn(spec, jro.make_marginal_cost_policy(spec), n_steps)
-    _, want = jsweep(jparams, jro.lockstep_states(spec, jparams, jstates))
+    jsweep = jro.make_lockstep_sweep_fn(jspec, jro.make_marginal_cost_policy(jspec), n_steps)
+    _, want = jsweep(jparams, jro.lockstep_states(jspec, jparams, jstates))
 
     starts = tparams["initial_step"].view(1, 1).expand(1, B)
     states = make_reset_fn(spec)(tparams, starts)
@@ -101,7 +107,7 @@ def _golden(scenario):
 @pytest.mark.parametrize("scenario", range(25))
 def test_run_compiled_golden_prefix(scenario):
     n_steps = 200
-    log = RuleBasedControl(pymgrid_tpu.Microgrid.from_scenario(scenario)).run_compiled(
+    log = RuleBasedControl(Microgrid.from_scenario(scenario)).run_compiled(
         max_steps=n_steps, device="cpu"
     )
     ours = log[("balance", 0, "reward")].values.astype(np.float64)
@@ -112,7 +118,7 @@ def test_run_compiled_golden_prefix(scenario):
 @pytest.mark.slow
 @pytest.mark.parametrize("scenario", range(25))
 def test_run_compiled_golden_full_year(scenario):
-    log = RuleBasedControl(pymgrid_tpu.Microgrid.from_scenario(scenario)).run_compiled(
+    log = RuleBasedControl(Microgrid.from_scenario(scenario)).run_compiled(
         device="cpu"
     )
     ours = log[("balance", 0, "reward")].values.astype(np.float64)
@@ -143,19 +149,20 @@ def _random_states(spec, params, rng, B):
 def test_table_policy_matches_jax_every_action(tables):
     """Scenario 1 (battery, genset, grid): every action index, each on its
     own random state, against the JAX table policy, bitwise."""
-    from pymgrid_tpu.envs import DiscreteMicrogridEnv
+    from pymgrid_tpu.envs import DiscreteMicrogridEnv as JaxDiscreteMicrogridEnv
+    from pymgrid_tpu_torch.envs import DiscreteMicrogridEnv
 
-    env = DiscreteMicrogridEnv.from_scenario(1)
-    lists = [list(pl) for pl in env.actions_list]
-    mg, spec, jparams, tparams = _setup(1, tables)
+    lists = [list(pl) for pl in DiscreteMicrogridEnv.from_scenario(1).actions_list]
+    jlists = [list(pl) for pl in JaxDiscreteMicrogridEnv.from_scenario(1).actions_list]
+    spec, jspec, jparams, tparams = _setup(1, tables)
     assert spec.n_genset == 1 and len(lists) > 4
-    _, params, _ = extract_spec(mg)
+    _, params, _ = extract_spec(Microgrid.from_scenario(1))
     rng = np.random.RandomState(12)
     reps = 3
     idx = np.tile(np.arange(len(lists)), reps).astype(np.int32)
     states = _random_states(spec, params, rng, len(idx))
 
-    jpolicy = jro.make_table_policy(spec, lists)
+    jpolicy = jro.make_table_policy(jspec, jlists)
     want = jax.jit(jax.vmap(jpolicy, in_axes=(None, 0, 0)))(
         jparams, {**jax.tree.map(jnp.asarray, states), "rng": jnp.zeros((len(idx), 2), jnp.uint32)},
         jnp.asarray(idx))
@@ -170,7 +177,7 @@ def test_table_policy_matches_jax_every_action(tables):
 
 
 def test_random_policy_shape_range_and_seed():
-    _, spec, _, tparams = _setup(1, tables=False)
+    spec, _, _, tparams = _setup(1, tables=False)
     state = make_reset_fn(spec)(tparams, torch.zeros((2, 5), dtype=torch.int32))
     draw = lambda seed: tro.make_random_policy(spec, torch.Generator().manual_seed(seed))(
         tparams, state)
@@ -188,7 +195,7 @@ def test_rollout_actions_and_normalized_rollout_match_jax():
     ``rollout_policy`` with the random policy equals ``rollout_actions`` fed
     the same draws."""
     n_steps, B = 25, 3
-    _, spec, jparams, tparams = _setup(1, tables=True)
+    spec, jspec, jparams, tparams = _setup(1, tables=True)
     gen = torch.Generator().manual_seed(11)
     policy = tro.make_random_policy(spec, gen)
     state = make_reset_fn(spec)(tparams, torch.full((1, B), 100, dtype=torch.int32))
@@ -197,9 +204,9 @@ def test_rollout_actions_and_normalized_rollout_match_jax():
 
     final, outs = tro.rollout_actions(spec, tparams, state, actions, normalized=True)
     keys = jax.random.split(jax.random.PRNGKey(0), B)
-    jstate = jax.vmap(jax_reset_fn(spec), in_axes=(None, 0, None))(jparams, keys, 100)
+    jstate = jax.vmap(jax_reset_fn(jspec), in_axes=(None, 0, None))(jparams, keys, 100)
     jfinal, jouts = jax.vmap(
-        lambda s, a: jro.rollout_actions(spec, jparams, s, a, normalized=True),
+        lambda s, a: jro.rollout_actions(jspec, jparams, s, a, normalized=True),
         in_axes=(0, 1), out_axes=(0, 1),
     )(jstate, jax.tree.map(lambda x: jnp.asarray(x[:, 0].numpy()), actions))
     for field in ("obs", "reward", "shaped_reward", "done", "log_row"):

@@ -15,9 +15,10 @@ import pytest
 import torch
 
 import pymgrid_tpu
+import pymgrid_tpu_torch
 from pymgrid_tpu.algos.saa_jax import BatchedSAA as JaxBatchedSAA
-from pymgrid_tpu.utils.data_generator import return_underlying_data
 from pymgrid_tpu_torch.algos import BatchedMPC, BatchedSAA
+from pymgrid_tpu_torch.utils.data_generator import return_underlying_data
 from test_torch_mpc import assert_closed_loop_close
 
 torch.set_num_threads(1)
@@ -25,16 +26,23 @@ warnings.filterwarnings("ignore")
 
 
 def _mg(n):
+    """Scenario ``n`` from the port's host layer."""
+    return pymgrid_tpu_torch.Microgrid.from_scenario(n)
+
+
+def _jmg(n):
+    """Scenario ``n`` from the JAX package's host layer."""
     return pymgrid_tpu.Microgrid.from_scenario(n)
 
 
 def _samples(scenario, n_samples):
-    """Host samples (preset 85) from a seeded numpy global state: the
-    legacy generators draw from ``np.random``."""
+    """Host samples (preset 85) from a seeded numpy global state, drawn by
+    the port's host generators (the legacy generators draw from
+    ``np.random``); both packages then get the same samples."""
     state = np.random.get_state()
     np.random.seed(1234)
     try:
-        return JaxBatchedSAA._generate_samples(_mg(scenario), n_samples, None, None, 85)
+        return BatchedSAA._generate_samples(_mg(scenario), n_samples, None, None, 85)
     finally:
         np.random.set_state(state)
 
@@ -56,7 +64,7 @@ def _steps(saa, state, n):
 def test_saa_matches_jax_with_the_same_samples(scenario, kw):
     n_samples, steps = (5, 10) if scenario == 0 else (3, 3)
     samples = _samples(scenario, n_samples)
-    jsaa = JaxBatchedSAA(_mg(scenario), n_samples=n_samples, samples=samples, **kw)
+    jsaa = JaxBatchedSAA(_jmg(scenario), n_samples=n_samples, samples=samples, **kw)
     tsaa = BatchedSAA(_mg(scenario), n_samples=n_samples, samples=samples,
                       dtype="float64", device="cpu", **kw)
     r_j, c_j, p_j = _steps(jsaa, jsaa.reset(), steps)
@@ -75,7 +83,7 @@ def test_saa_window_clamps_at_the_series_end():
     still takes the realized data: the port's costs and pick at such steps
     equal the JAX package's."""
     samples = _samples(0, 4)
-    jsaa = JaxBatchedSAA(_mg(0), n_samples=4, samples=samples)
+    jsaa = JaxBatchedSAA(_jmg(0), n_samples=4, samples=samples)
     tsaa = BatchedSAA(_mg(0), n_samples=4, samples=samples, dtype="float64", device="cpu")
     t_end = tsaa.sample_length - 10
     jstate = {**jsaa.reset(), "step": jnp.int32(t_end)}

@@ -3,11 +3,13 @@
 Both packages get identical starts: the JAX runner draws them from its keys,
 and the test recomputes them from the same keys (as
 ``tests/test_suite.py::test_randomized_initial_step_matches_shifted_host``
-does) and hands them to the port.  The throughput-mode checksum
+does) and hands them to the port.  Each package builds its microgrids with
+its own host layer.  The throughput-mode checksum
 ``acc + reward + obs.sum(-1)`` contains a reduction whose order differs
 between the frameworks, so it is compared at rtol 1e-12; reward streams are
 compared bitwise.
 """
+import dataclasses
 import warnings
 from pathlib import Path
 
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 import pymgrid_tpu
+import pymgrid_tpu_torch
 from pymgrid_tpu.core.rollout import make_marginal_cost_policy as jax_mc_policy
 from pymgrid_tpu.parallel.suite import SuiteRunner as JaxSuiteRunner
 from pymgrid_tpu_torch.core import rollout as tro
@@ -42,7 +45,8 @@ def _jax_starts(runner, keys):
 
 
 def _compare_throughput_mode(make_mgs, B, n_steps, seed):
-    jrunner = JaxSuiteRunner(make_mgs(), batch_per_config=B, dtype=np.float64)
+    """``make_mgs(pkg)``: the configs, built by ``pkg``'s host layer."""
+    jrunner = JaxSuiteRunner(make_mgs(pymgrid_tpu), batch_per_config=B, dtype=np.float64)
     fn = jrunner.rollout_fn(
         jax_mc_policy(jrunner.spec), n_steps, auto_reset=True, collect=False,
         randomize_initial_step=True, block_prefetch=False,
@@ -51,7 +55,7 @@ def _compare_throughput_mode(make_mgs, B, n_steps, seed):
     want = np.asarray(fn(jrunner.params, keys))
     starts = _jax_starts(jrunner, keys)
 
-    runner = SuiteRunner(make_mgs(), batch_per_config=B, dtype="float64",
+    runner = SuiteRunner(make_mgs(pymgrid_tpu_torch), batch_per_config=B, dtype="float64",
                          device="cpu")
     assert runner.max_start == min(
         m.ts_length for m in runner.spec.log_order if m.ts_length) - 1
@@ -69,29 +73,25 @@ def _compare_throughput_mode(make_mgs, B, n_steps, seed):
 def test_suite_randomized_starts_match_jax():
     scenarios = (0, 1, 4, 22)
     starts = _compare_throughput_mode(
-        lambda: [pymgrid_tpu.Microgrid.from_scenario(n) for n in scenarios],
+        lambda pkg: [pkg.Microgrid.from_scenario(n) for n in scenarios],
         B=3, n_steps=24, seed=3,
     )
     assert len(np.unique(starts)) > 1
 
 
-def _short_series_mgs(T=40):
-    from pymgrid_tpu.microgrid import Microgrid
-    from pymgrid_tpu.modules import (
-        BatteryModule, GridModule, LoadModule, RenewableModule,
-    )
-
+def _short_series_mgs(pkg=pymgrid_tpu_torch, T=40):
+    M = pkg.modules
     rng = np.random.RandomState(0)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        return [Microgrid([
-            BatteryModule(min_capacity=10, max_capacity=100, max_charge=50,
-                          max_discharge=50, efficiency=0.9,
-                          battery_cost_cycle=0.02, init_soc=0.5),
-            ("pv", RenewableModule(time_series=50 * rng.rand(T))),
-            LoadModule(time_series=60 * rng.rand(T)),
-            GridModule(max_import=100, max_export=100,
-                       time_series=rng.rand(T, 3)),
+        return [pkg.Microgrid([
+            M.BatteryModule(min_capacity=10, max_capacity=100, max_charge=50,
+                            max_discharge=50, efficiency=0.9,
+                            battery_cost_cycle=0.02, init_soc=0.5),
+            ("pv", M.RenewableModule(time_series=50 * rng.rand(T))),
+            M.LoadModule(time_series=60 * rng.rand(T)),
+            M.GridModule(max_import=100, max_export=100,
+                         time_series=rng.rand(T, 3)),
         ])]
 
 
@@ -147,7 +147,7 @@ def test_suite_collect_matches_golden_all_scenarios():
     package's run_compiled reproduces: tests/test_golden_year.py)."""
     n_steps = 40
     runner = SuiteRunner(
-        [pymgrid_tpu.Microgrid.from_scenario(n) for n in range(25)],
+        [pymgrid_tpu_torch.Microgrid.from_scenario(n) for n in range(25)],
         batch_per_config=1, dtype="float64", device="cpu",
     )
     fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), n_steps,
@@ -174,10 +174,11 @@ def test_build_suite_include_genset_matches_jax(include_genset):
     from pymgrid_tpu.parallel.suite import build_suite as jax_build_suite
     from pymgrid_tpu_torch.parallel.suite import build_suite
 
-    mgs = lambda: [pymgrid_tpu.Microgrid.from_scenario(0)]
-    jspec, jparams = jax_build_suite(mgs(), dtype=np.float64, include_genset=include_genset)
-    spec, params = build_suite(mgs(), "float64", "cpu", include_genset=include_genset)
-    assert spec == jspec
+    jspec, jparams = jax_build_suite([pymgrid_tpu.Microgrid.from_scenario(0)],
+                                     dtype=np.float64, include_genset=include_genset)
+    spec, params = build_suite([pymgrid_tpu_torch.Microgrid.from_scenario(0)], "float64",
+                               "cpu", include_genset=include_genset)
+    assert dataclasses.astuple(spec) == dataclasses.astuple(jspec)
     assert spec.n_genset == (1 if include_genset else 0)
 
     def compare(want, got, path):
