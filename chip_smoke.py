@@ -45,7 +45,17 @@ which fails the run on error:
               sample the real data (equal to ``BatchedMPC`` at rtol 1e-5) and
               with 10 sampled futures (finite rewards, the pick at the median
               of the sorted costs).  24 steps each.
-5. kernels    the kernel against its plain PyTorch version on the card,
+5. training   ``pymgrid_tpu_torch.examples`` at the published widths: A2C on
+              scenario 1 (4096 replicas x 128-step rollouts, MLP 64-64,
+              entropy 0.02): one iteration with fed actions held against the
+              CPU float32 iteration at rtol 1e-4 (loss, updated parameters),
+              5 sampled iterations timed (finite history), one more under
+              ``torch.profiler`` (device events, busy time, idle share);
+              continuous ES on scenario 0 (population 256, hidden 32, depth
+              cut to 1000 of the year's 8758 steps): the population's returns
+              at a fixed theta held against the CPU float32 run, 2
+              generations timed; ``entry.dryrun_multichip(1)`` over NCCL.
+6. kernels    the kernel against its plain PyTorch version on the card,
               bitwise (``torch.equal``): at the main-path shape, on all 25
               scenarios at 1024 x 64 (each scenario's kernel variant printed)
               and on scenario 1 (genset, weak grid) at 4096 x 8759; kernel and
@@ -497,6 +507,110 @@ def phase_saa(device, n_steps=24, n_samples=10, scenario=0, seed=0):
             "picks": chosen.tolist()}
 
 
+def _a2c_step_fed(run, actions, device):
+    """One A2C iteration of ``run`` with fed actions from the seed-0
+    weights; returns the loss and the updated parameters (on the CPU)."""
+    import torch
+
+    theta = run.init_theta(seed=0)
+    adam = torch.optim.Adam(theta.parameters(), lr=run.lr)
+    *_, loss, _ = run.train_step(theta, adam, *run.init_envs(), actions=actions)
+    return loss.item(), torch.cat([p.detach().reshape(-1) for p in theta.parameters()]).cpu()
+
+
+def phase_a2c(device, scenario=1, batch=4096, rollout_len=128, iters=5, entropy_coef=0.02,
+              rtol=1e-4, trace_dir=None):
+    """A2C (``pymgrid_tpu_torch.examples.train_rl``) at the published width:
+    one iteration with fed actions (``RandomState(0)``) equal to the same
+    iteration on the CPU in float32 at ``rtol`` (loss and updated
+    parameters; an entry near 0 to ``rtol`` of the Adam step), then
+    ``iters`` sampled iterations timed (the history finite).  With
+    ``trace_dir`` one more sampled iteration runs under
+    ``utils.profiling.trace``: device events and busy time per iteration,
+    and the idle share against the profiled wall time and against the
+    unprofiled iteration time (the profiler slows the host side)."""
+    import torch
+
+    from pymgrid_tpu_torch.examples.train_rl import build_training
+    from pymgrid_tpu_torch.utils.profiling import Throughput, device_summary, trace
+
+    kw = dict(scenario=scenario, batch=batch, rollout_len=rollout_len,
+              entropy_coef=entropy_coef)
+    run = build_training(device=device, **kw)
+    actions = np.random.RandomState(0).randint(run.n_actions, size=(rollout_len, batch))
+    loss, params = _a2c_step_fed(run, actions, device)
+    ref_loss, ref_params = _a2c_step_fed(build_training(device="cpu", **kw), actions, "cpu")
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    params_err = (params - ref_params).abs().max().item()
+    _check(loss_rel <= rtol, f"A2C fed-action loss {loss} vs CPU {ref_loss}: rel {loss_rel:.3e}")
+    _check(torch.allclose(params, ref_params, rtol=rtol, atol=rtol * run.lr),
+           f"A2C fed-action parameters vs CPU: max abs diff {params_err:.3e}")
+
+    with Throughput(batch, rollout_len * iters, device) as meter:
+        theta, _, history = run(iters=iters, log_every=iters)
+    _check(len(history) == iters and bool(np.isfinite(history).all()),
+           f"A2C history not finite: {history}")
+    out = {"loss_rel_vs_cpu": loss_rel, "params_max_abs_vs_cpu": params_err,
+           "seconds": meter.elapsed, "steps_per_s": meter.steps_per_sec,
+           "ms_per_iter": meter.elapsed / iters * 1e3, "history": history}
+    if trace_dir is not None:
+        adam = torch.optim.Adam(theta.parameters(), lr=run.lr)
+        states, obs = run.init_envs()
+        generator = run.generator(seed=1)
+        with trace(str(trace_dir), device) as prof:
+            t0 = time.perf_counter()
+            run.train_step(theta, adam, states, obs, generator=generator)
+            _sync(device)
+            wall = time.perf_counter() - t0
+        summary = device_summary(prof)
+        out.update(profiled_ms=wall * 1e3, device_events=summary["kernels"],
+                   busy_ms=summary["busy_ms"],
+                   idle_share=1.0 - summary["busy_ms"] / (wall * 1e3),
+                   idle_share_unprofiled=1.0 - summary["busy_ms"] / out["ms_per_iter"])
+    return out
+
+
+def phase_es(device, scenario=0, pop=256, hidden=32, n_steps=1000, gens=2, rtol=1e-5):
+    """Continuous ES (``pymgrid_tpu_torch.examples.train_es``) at the
+    published width with the depth cut to ``n_steps``: the population's
+    returns at a fixed theta and noise (``RandomState(0)``) equal the CPU
+    float32 run at ``rtol`` (measured on the H100: 2.4e-7; the MLPs' sums
+    run in other orders on the two devices); then ``gens`` generations
+    timed."""
+    from pymgrid_tpu_torch.examples.train_es import build_es
+    from pymgrid_tpu_torch.utils.profiling import Throughput
+
+    kw = dict(scenario=scenario, pop=pop, hidden=hidden, n_steps=n_steps, continuous=True)
+    run = build_es(device=device, **kw)
+    rng = np.random.RandomState(0)
+    theta = (0.3 * rng.randn(run.dim)).astype(np.float32)
+    eps = rng.randn(pop // 2, run.dim).astype(np.float32)
+    thetas = theta[None] + run.sigma * np.concatenate([eps, -eps])
+    got = run.episode_returns(thetas).double().cpu().numpy()
+    want = build_es(device="cpu", **kw).episode_returns(thetas).double().numpy()
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    _check(np.isfinite(got).all() and rel <= rtol,
+           f"ES population returns vs CPU float32: max rel {rel:.3e} > {rtol}")
+
+    with Throughput(pop, n_steps * gens, device) as meter:
+        _, history = run(gens=gens, log_every=gens)
+    _check(len(history) == gens and bool(np.isfinite(history).all()),
+           f"ES history not finite: {history}")
+    return {"max_rel_vs_cpu": rel, "seconds": meter.elapsed,
+            "steps_per_s": meter.steps_per_sec, "history": history,
+            "rbc": run.rbc_baseline()}
+
+
+def phase_dryrun(device):
+    """``entry.dryrun_multichip(1)``: the data-parallel REINFORCE step, the
+    meshed env rollouts and the meshed suite over a one-process group (NCCL
+    on the card)."""
+    from pymgrid_tpu_torch.entry import dryrun_multichip
+
+    result, seconds = _timed(lambda: dryrun_multichip(1, device=device), device)
+    return {**result, "seconds": seconds}
+
+
 def phase_kernel_vs_plain(sweep, device, genset_batch=4096, genset_steps=8759):
     """The kernel against its plain PyTorch version, bitwise: at the
     main-path shape, on every pymgrid25 scenario (1024 x 64 steps) and on
@@ -612,6 +726,29 @@ def main():
           f"hour), cost {saa['sampled_cost']:.4f}, picks {saa['picks']} at the sorted median "
           f"{tag}", flush=True)
 
+    # ---- training: A2C, ES, the data-parallel dryrun (no kernel) ---------
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=".a2c-trace-", dir=REPO) as trace_dir:
+        a2c = phase_a2c(device, trace_dir=trace_dir)
+    print(f"training/a2c: scenario 1, 4096 x 128, 5 iterations in {a2c['seconds']:.4f} s, "
+          f"{a2c['ms_per_iter']:.2f} ms per iteration, {a2c['steps_per_s']:.6g} env-steps/s; "
+          f"history {json.dumps([round(h, 6) for h in a2c['history']])}; fed-action iteration "
+          f"vs CPU float32: loss rel {a2c['loss_rel_vs_cpu']:.3e}, parameters max abs diff "
+          f"{a2c['params_max_abs_vs_cpu']:.3e} {tag}", flush=True)
+    print(f"training/a2c profile: one iteration under torch.profiler {a2c['profiled_ms']:.2f} ms, "
+          f"{a2c['device_events']} device events, busy {a2c['busy_ms']:.2f} ms, idle share "
+          f"{a2c['idle_share']:.4f} (against the unprofiled {a2c['ms_per_iter']:.2f} ms: "
+          f"{a2c['idle_share_unprofiled']:.4f}) {tag}", flush=True)
+    es = phase_es(device)
+    print(f"training/es: scenario 0 continuous, pop 256 x 1000 steps (depth cut from 8758), "
+          f"2 generations in {es['seconds']:.4f} s, {es['steps_per_s']:.6g} env-steps/s; "
+          f"best-of-pop {es['history']} vs RBC {es['rbc']:.2f}; population returns vs CPU "
+          f"float32 max rel {es['max_rel_vs_cpu']:.3e} {tag}", flush=True)
+    dry = phase_dryrun(device)
+    print(f"training/dryrun_multichip(1) over NCCL: loss {dry['loss']:.4f}, mean return "
+          f"{dry['mean_return']:.4f}, in {dry['seconds']:.2f} s {tag}", flush=True)
+
     # ---- kernel against its plain version (launches not counted) ---------
     kvp = phase_kernel_vs_plain(sweep, device)
     kvp["ms"] = _event_ms(lambda: sweep["rollout"](sweep["init"]), 5)
@@ -641,7 +778,7 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": 1,   # the cards this script drives, whatever the host has
     }}), flush=True)
 
 

@@ -1,15 +1,19 @@
 """Replica batching of one microgrid config.
 
-Port of :class:`pymgrid_tpu.parallel.batch.BatchedMicrogrid`: ``batch_size``
-replicas of one config step in lockstep on one device.  States, actions and
-step outputs carry a leading replica axis ``(B, ...)`` as in the JAX class;
-the engine's config axis (``C = 1``) is added and removed inside.  The JAX
-class's device mesh (``make_batch_mesh``, ``mesh=``) belongs to distribution
-(ROADMAP.md A12); this one takes a ``device``.
+Port of :mod:`pymgrid_tpu.parallel.batch`: ``batch_size`` replicas of one
+config step in lockstep on one device.  States, actions and step outputs
+carry a leading replica axis ``(B, ...)`` as in the JAX class; the engine's
+config axis (``C = 1``) is added and removed inside.
+
+With ``mesh=`` (a :class:`~pymgrid_tpu_torch.parallel.distributed.BatchMesh`
+from :func:`make_batch_mesh`) ``batch_size`` is the job's global batch and
+this rank holds its rows on the mesh's device: ``reset`` and rollouts return
+the local rows, ``step`` takes the global actions and uses this rank's rows,
+and :func:`~pymgrid_tpu_torch.parallel.distributed.fetch` assembles outputs.
 """
 import torch
 
-from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
+from pymgrid_tpu_torch._device import numpy_dtype, torch_dtype
 from pymgrid_tpu_torch.core.engine import (
     StepOutput,
     check_supported,
@@ -23,8 +27,24 @@ from pymgrid_tpu_torch.core.params import (
 )
 from pymgrid_tpu_torch.core.rollout import make_rollout_fn
 from pymgrid_tpu_torch.core.spec import extract_spec
+from pymgrid_tpu_torch.parallel.distributed import (
+    global_batch_mesh,
+    local_layout,
+    process_count,
+)
 
-__all__ = ["BatchedMicrogrid"]
+__all__ = ["BatchedMicrogrid", "make_batch_mesh"]
+
+
+def make_batch_mesh(n_devices=None, device="cuda"):
+    """:class:`~pymgrid_tpu_torch.parallel.distributed.BatchMesh` of this
+    job: one process per device, so ``n_devices`` (if given) must equal the
+    job's world size."""
+    world = process_count()
+    if n_devices is not None and n_devices != world:
+        raise ValueError(f"one process drives one device: this job has {world} "
+                         f"processes, asked for {n_devices} devices")
+    return global_batch_mesh(device)
 
 
 def drop_config_axis(out):
@@ -35,11 +55,15 @@ def drop_config_axis(out):
 
 class BatchedMicrogrid:
     """``batch_size`` replicas of ``microgrid`` on ``device`` in ``dtype``
-    (float64 for parity work, float32 for throughput)."""
+    (float64 for parity work, float32 for throughput); with ``mesh`` this
+    rank's rows of them on the mesh's device (see the module docstring)."""
 
-    def __init__(self, microgrid, batch_size, dtype, device="cuda", normalized_actions=False):
+    def __init__(self, microgrid, batch_size, dtype, device="cuda", normalized_actions=False,
+                 mesh=None):
         self.batch_size = batch_size
-        self.device, self.dtype = resolve_device(device), torch_dtype(dtype)
+        self.mesh = mesh
+        self.device, self.local_batch_size, self._rows = local_layout(mesh, batch_size, device)
+        self.dtype = torch_dtype(dtype)
         self.spec, params, _ = extract_spec(microgrid, dtype=numpy_dtype(dtype))
         check_supported(self.spec)
         self.params = with_config_axis(params_to_torch(params, self.device, self.dtype))
@@ -48,17 +72,20 @@ class BatchedMicrogrid:
 
     # ------------------------------------------------------------------ api
     def reset(self, seed=0):
-        """``(B, ...)`` states at the config's initial step.  They do not
-        depend on ``seed``: every forecaster the port supports is a pure
-        function of time (the JAX reset keys only jax-PRNG gaussian
-        forecasts, ROADMAP.md A14)."""
+        """``(B, ...)`` states at the config's initial step (this rank's
+        rows with a mesh).  They do not depend on ``seed``: every forecaster
+        the port supports is a pure function of time (the JAX reset keys
+        only jax-PRNG gaussian forecasts, ROADMAP.md A14)."""
         starts = self.params["initial_step"].to(torch.int32).view(1, 1)
         return without_config_axis(
-            self._reset_fn(self.params, starts.expand(1, self.batch_size))
+            self._reset_fn(self.params, starts.expand(1, self.local_batch_size))
         )
 
     def step(self, state, action):
-        """Step all replicas; ``action`` tensors carry a leading batch axis."""
+        """Step all replicas; ``action`` tensors carry a leading (global)
+        batch axis, of which this rank uses its rows."""
+        action = {k: torch.as_tensor(v, device=self.device)[self._rows]
+                  for k, v in action.items()}
         new_state, out = self._step_fn(
             self.params, with_config_axis(state), with_config_axis(action)
         )

@@ -14,7 +14,15 @@ The public API has the JAX envs' shapes: ``step`` returns ``(B, ...)``
 outputs, ``rollout`` time-major ``(T, B, ...)`` ones, and states are dicts of
 ``(B, ...)`` leaves (no ``rng`` leaf); the engine's config axis (``C = 1``)
 is added and removed inside.  Observations come out in the env's order
-(``obs_layout="env"``).
+(``obs_layout="env"``); ``obs_layout="log"`` gives the engine's container
+order instead, the layout the training examples feed their MLPs.
+
+With ``mesh=`` (a :class:`~pymgrid_tpu_torch.parallel.distributed.BatchMesh`)
+``batch_size`` is the job's global batch and this rank holds its rows on the
+mesh's device: ``reset`` returns the local states, ``step`` and ``rollout``
+take the global actions and use this rank's rows (as the JAX
+``_shard_inputs`` places them), and outputs are local;
+:func:`~pymgrid_tpu_torch.parallel.distributed.fetch` assembles them.
 
 ``rollout`` is a Python loop over the action sequence.  The engine step is
 built once per ``(keep_obs, keep_logs)`` and builds only what is kept (the
@@ -29,7 +37,7 @@ outputs bitwise.
 import numpy as np
 import torch
 
-from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
+from pymgrid_tpu_torch._device import numpy_dtype, torch_dtype
 from pymgrid_tpu_torch.core.engine import (
     StepOutput,
     check_supported,
@@ -45,6 +53,7 @@ from pymgrid_tpu_torch.core.rollout import make_table_policy, select_state
 from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.core.tables import ensure_tables
 from pymgrid_tpu_torch.parallel.batch import drop_config_axis
+from pymgrid_tpu_torch.parallel.distributed import local_layout
 
 __all__ = ["BatchedDiscreteEnv", "BatchedContinuousEnv"]
 
@@ -57,10 +66,13 @@ class _BatchedEnv:
 
     _normalized = False
 
-    def __init__(self, env, batch_size, dtype, device, auto_reset):
+    def __init__(self, env, batch_size, dtype, device, auto_reset, mesh, obs_layout):
         self.batch_size = batch_size
         self.auto_reset = auto_reset
-        self.device, self.dtype = resolve_device(device), torch_dtype(dtype)
+        self.mesh = mesh
+        self.device, self.local_batch_size, self._rows = local_layout(mesh, batch_size, device)
+        self.dtype = torch_dtype(dtype)
+        self.obs_layout = obs_layout
         self.spec, params, _ = extract_spec(env, dtype=numpy_dtype(dtype))
         check_supported(self.spec)
         self.params = ensure_tables(
@@ -80,13 +92,14 @@ class _BatchedEnv:
         if key not in self._step_fns:
             self._step_fns[key] = make_step_fn(
                 self.spec, normalized=self._normalized, with_obs=key[0],
-                with_log=key[1], obs_layout="env",
+                with_log=key[1], obs_layout=self.obs_layout,
             )
         return self._step_fns[key]
 
     def _actions(self, actions, time_major):
         """``actions`` as a tensor on the device of shape ``(B,) + tail``
-        (``(T, B) + tail`` when ``time_major``); ``ValueError`` otherwise."""
+        (``(T, B) + tail`` when ``time_major``; ``B`` the global batch),
+        ``ValueError`` otherwise; returns this rank's rows."""
         if isinstance(actions, torch.Tensor):
             actions = actions.to(self.device)
         else:
@@ -97,6 +110,7 @@ class _BatchedEnv:
             raise ValueError(f"{'action_seq' if time_major else 'actions'} must have "
                              f"shape ({', '.join(map(str, want))}), got "
                              f"{tuple(actions.shape)}")
+        actions = actions[:, self._rows] if time_major else actions[self._rows]
         return actions.to(self._action_dtype)
 
     def _advance(self, step_fn, states, actions):
@@ -119,20 +133,23 @@ class _BatchedEnv:
 
     # ------------------------------------------------------------------ api
     def reset(self, seed=0):
-        """``(B, ...)`` initial states (observations come from step
-        outputs).  They do not depend on ``seed``: every forecaster the port
-        supports is a pure function of time (the JAX reset keys only
-        jax-PRNG gaussian forecasts, ROADMAP.md A14)."""
+        """``(B, ...)`` initial states (this rank's rows with a mesh;
+        observations come from step outputs).  They do not depend on
+        ``seed``: every forecaster the port supports is a pure function of
+        time (the JAX reset keys only jax-PRNG gaussian forecasts, ROADMAP.md
+        A14)."""
         starts = self.params["initial_step"].to(torch.int32).view(1, 1)
         return without_config_axis(
-            self._reset_fn(self.params, starts.expand(1, self.batch_size))
+            self._reset_fn(self.params, starts.expand(1, self.local_batch_size))
         )
 
-    def step(self, states, actions):
+    def step(self, states, actions, keep_logs=True):
         """One step of every replica; returns ``(new_states, StepOutput)``
-        with ``(B, ...)`` fields."""
+        with ``(B, ...)`` fields (``log_row`` is ``None`` unless
+        ``keep_logs``).  States whose replicas share one step of shape
+        ``(1,)`` (a ``shared_step`` rollout's final states) keep it shared."""
         actions = self._actions(actions, time_major=False)
-        new_states, out = self._advance(self._step_fn(True, True),
+        new_states, out = self._advance(self._step_fn(True, keep_logs),
                                         self._lift(states), actions.unsqueeze(0))
         return without_config_axis(new_states), drop_config_axis(out)
 
@@ -187,8 +204,9 @@ class BatchedDiscreteEnv(_BatchedEnv):
     _action_tail = ()
     _action_dtype = torch.int64
 
-    def __init__(self, env, batch_size, dtype, device="cuda", auto_reset=True):
-        super().__init__(env, batch_size, dtype, device, auto_reset)
+    def __init__(self, env, batch_size, dtype, device="cuda", auto_reset=True, mesh=None,
+                 obs_layout="env"):
+        super().__init__(env, batch_size, dtype, device, auto_reset, mesh, obs_layout)
         self.n_actions = env.action_space.n
         self._policy = make_table_policy(
             self.spec, [list(pl) for pl in env.actions_list], self.device
@@ -206,8 +224,9 @@ class BatchedContinuousEnv(_BatchedEnv):
 
     _normalized = True
 
-    def __init__(self, env, batch_size, dtype, device="cuda", auto_reset=True):
-        super().__init__(env, batch_size, dtype, device, auto_reset)
+    def __init__(self, env, batch_size, dtype, device="cuda", auto_reset=True, mesh=None,
+                 obs_layout="env"):
+        super().__init__(env, batch_size, dtype, device, auto_reset, mesh, obs_layout)
         by_module = {(ref.name, ref.num): ref for ref in self.spec.controllable}
         self._segments, offset = [], 0     # (kind, slot, offset, width)
         for name, boxes in env._nested_action_space.items():

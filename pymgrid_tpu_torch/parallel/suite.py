@@ -16,12 +16,13 @@ runner's block-prefetch mode is a TPU gather optimisation left for later
 import numpy as np
 import torch
 
-from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
+from pymgrid_tpu_torch._device import numpy_dtype, torch_dtype
 from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.core.engine import StepOutput, make_reset_fn, make_step_fn
-from pymgrid_tpu_torch.core.params import params_to_torch, stack_configs
+from pymgrid_tpu_torch.core.params import params_to_torch, stack_configs, tree_map
 from pymgrid_tpu_torch.core.rollout import select_state
 from pymgrid_tpu_torch.core.tables import ensure_tables
+from pymgrid_tpu_torch.parallel.distributed import local_layout
 
 __all__ = ["normalize_to_superset", "build_suite", "SuiteRunner"]
 
@@ -146,13 +147,23 @@ def build_suite(microgrids, dtype, device="cuda", include_genset=True):
 
 
 class SuiteRunner:
-    """Run ``batch_per_config`` replicas of each config in lockstep."""
+    """Run ``batch_per_config`` replicas of each config in lockstep.
 
-    def __init__(self, microgrids, batch_per_config, dtype, device="cuda"):
-        self.device = resolve_device(device)
-        self.dtype = torch_dtype(dtype)
-        self.spec, self.params = build_suite(microgrids, self.dtype, self.device)
+    With ``mesh=`` (a :class:`~pymgrid_tpu_torch.parallel.distributed.BatchMesh`)
+    the configs shard over the job's ranks, as the JAX runner shards them
+    over its mesh: this rank holds its share of the configs' params on the
+    mesh's device, ``rollout_fn``'s function takes the global ``(C, B)``
+    starts and returns this rank's ``(C / world, B)`` rows, which
+    :func:`~pymgrid_tpu_torch.parallel.distributed.fetch` assembles."""
+
+    def __init__(self, microgrids, batch_per_config, dtype, device="cuda", mesh=None):
         self.n_configs = len(microgrids)
+        self.mesh = mesh
+        self.device, _, self._configs = local_layout(mesh, self.n_configs, device)
+        self.dtype = torch_dtype(dtype)
+        self.spec, params = build_suite(microgrids, self.dtype, self.device)
+        self._initial_step = params["initial_step"]    # every config's
+        self.params = tree_map(lambda x: x[self._configs], params)
         self.batch_per_config = batch_per_config
         ts_lengths = [m.ts_length for m in self.spec.log_order if m.ts_length]
         # replicas start in [initial_step, max_start)
@@ -161,8 +172,9 @@ class SuiteRunner:
     def draw_initial_steps(self, generator):
         """``(C, B)`` int32 starts, uniform in ``[initial_step, max_start)``
         per config, drawn on the CPU from ``generator`` and moved to the
-        runner's device (so every device gets the same starts)."""
-        lows = self.params["initial_step"].cpu().tolist()
+        runner's device (so every device gets the same starts).  ``C`` is
+        every config, also with a mesh."""
+        lows = self._initial_step.cpu().tolist()
         draws = [
             torch.randint(int(lo), self.max_start, (self.batch_per_config,),
                           generator=generator, dtype=torch.int64)
@@ -172,7 +184,7 @@ class SuiteRunner:
 
     def fixed_initial_steps(self):
         """``(C, B)`` starts at every config's ``initial_step``."""
-        return (self.params["initial_step"].to(torch.int32).unsqueeze(1)
+        return (self._initial_step.to(torch.int32).unsqueeze(1)
                 .expand(self.n_configs, self.batch_per_config).contiguous())
 
     def rollout_fn(self, policy, n_steps, auto_reset=True, collect=False,
@@ -204,7 +216,7 @@ class SuiteRunner:
                 if generator is None:
                     raise ValueError("randomized auto-resets with collect=True "
                                      "need a torch.Generator")
-                return self.draw_initial_steps(generator)
+                return self.draw_initial_steps(generator)[self._configs]
             return i0.expand(new_state["step"].shape)
 
         def suite_rollout(params, initial_steps, generator=None):
@@ -214,6 +226,7 @@ class SuiteRunner:
                     f"{(self.n_configs, self.batch_per_config)}, got "
                     f"{tuple(initial_steps.shape)}"
                 )
+            initial_steps = initial_steps[self._configs]
             states = reset_fn(params, initial_steps)
             acc = torch.zeros(initial_steps.shape, dtype=self.dtype,
                               device=initial_steps.device)

@@ -72,6 +72,27 @@ def test_saa_phase_cpu():
     assert out["degenerate_max_rel"] < 1e-5 and len(out["picks"]) == 3
 
 
+def test_a2c_phase_cpu(tmp_path):
+    """16 replicas x 8 steps, 2 iterations, and the profiled iteration (a
+    CPU capture records no device events)."""
+    out = chip_smoke.phase_a2c("cpu", batch=16, rollout_len=8, iters=2,
+                               trace_dir=tmp_path / "trace")
+    assert out["loss_rel_vs_cpu"] == 0.0 and out["params_max_abs_vs_cpu"] == 0.0
+    assert len(out["history"]) == 2 and out["steps_per_s"] > 0
+    assert out["device_events"] == 0 and out["idle_share"] == 1.0
+
+
+def test_es_phase_cpu():
+    out = chip_smoke.phase_es("cpu", pop=6, hidden=4, n_steps=15)
+    assert out["max_rel_vs_cpu"] == 0.0 and len(out["history"]) == 2
+    assert out["rbc"] < 0
+
+
+def test_dryrun_phase_cpu():
+    out = chip_smoke.phase_dryrun("cpu")
+    assert out["devices"] == 1 and out["seconds"] > 0
+
+
 def test_main_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:

@@ -27,7 +27,9 @@ for name in names:
 for name in ("pymgrid_tpu_torch.parallel.batch", "pymgrid_tpu_torch.parallel.batched_env",
              "pymgrid_tpu_torch.utils.checkpoint", "pymgrid_tpu_torch.core.lp",
              "pymgrid_tpu_torch.algos.mpc_batched", "pymgrid_tpu_torch.algos.mpc_suite",
-             "pymgrid_tpu_torch.algos.saa_batched"):
+             "pymgrid_tpu_torch.algos.saa_batched", "pymgrid_tpu_torch.examples.train_rl",
+             "pymgrid_tpu_torch.examples.train_es", "pymgrid_tpu_torch.parallel.distributed",
+             "pymgrid_tpu_torch.utils.profiling", "pymgrid_tpu_torch.entry"):
     assert name in names, name
 
 from pymgrid_tpu_torch import Microgrid
