@@ -32,7 +32,19 @@ which fails the run on error:
               the rollouts held bitwise against the loop, the first replicas
               against the host numpy env (float64) at rtol 1e-4, and a float64
               run on the card bitwise against the host env.
-4. planners   the on-device planners through their user entry points:
+4. surfaces   the engine surfaces that draw or call per replica: (a)
+              ``BatchedDiscreteEnv`` on scenario 0 with gaussian forecasts (std
+              0.1, horizon 23) drawn from threefry keys, 65536 x 100 float32:
+              the ``step()`` loop and ``rollout(shared_step=True)`` from
+              ``reset(seed=0)``, timed and bitwise equal, ``seed=1`` different,
+              4 float64 replicas within 1e-9 of the CPU in the realized
+              forecast log fields, the standardized noise's mean and std, and
+              the device events per step under ``torch.profiler``; (b)
+              ``BatchedContinuousEnv`` on scenario 1 with a custom battery
+              transition, a callable genset cost and user forecasters on load
+              and pv: 4 float64 replicas bitwise against the host env, and
+              65536 x 100 float32 timed, the rollout bitwise against the loop.
+5. planners   the on-device planners through their user entry points:
               ``SuiteMPC`` over all 25 pymgrid25 scenarios at horizon 24 for
               48 steps in the published chip mode (float32, box IPM,
               ``enum_bits=3``, ``enum_chunk=16``, ``iters=60``,
@@ -45,7 +57,7 @@ which fails the run on error:
               sample the real data (equal to ``BatchedMPC`` at rtol 1e-5) and
               with 10 sampled futures (finite rewards, the pick at the median
               of the sorted costs).  24 steps each.
-5. training   ``pymgrid_tpu_torch.examples`` at the published widths: A2C on
+6. training   ``pymgrid_tpu_torch.examples`` at the published widths: A2C on
               scenario 1 (4096 replicas x 128-step rollouts, MLP 64-64,
               entropy 0.02): one iteration with fed actions held against the
               CPU float32 iteration at rtol 1e-4 (loss, updated parameters),
@@ -55,7 +67,7 @@ which fails the run on error:
               cut to 1000 of the year's 8758 steps): the population's returns
               at a fixed theta held against the CPU float32 run, 2
               generations timed; ``entry.dryrun_multichip(1)`` over NCCL.
-6. kernels    the kernel against its plain PyTorch version on the card,
+7. kernels    the kernel against its plain PyTorch version on the card,
               bitwise (``torch.equal``): at the main-path shape, on all 25
               scenarios at 1024 x 64 (each scenario's kernel variant printed)
               and on scenario 1 (genset, weak grid) at 4096 x 8759; kernel and
@@ -67,6 +79,7 @@ the last is the kernels' JSON record; the last line is the result JSON.
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -380,6 +393,226 @@ def phase_continuous_env(device, batch=65536, n_steps=100, scenario=1,
             n_steps, batch, venv.action_dim).astype(np.float32),
         lambda a: a.astype(np.float64), ref_replicas, rtol,
     )
+
+
+def _gaussian_discrete_env(scenario):
+    """The host ``DiscreteMicrogridEnv`` of ``scenario`` with gaussian
+    forecasts (std 0.1) on every time series at horizon 23, drawn in the
+    engine from threefry keys (no numpy noise bank)."""
+    from pymgrid_tpu_torch.envs import DiscreteMicrogridEnv
+
+    env = DiscreteMicrogridEnv.from_scenario(scenario)
+    env.set_forecaster(0.1, forecast_horizon=23)
+    return env
+
+
+def _forecast_columns(spec):
+    """Log-row columns of the realized forecast fields."""
+    return [i for i, (_, _, field) in enumerate(spec.log_columns) if "_forecast_" in field]
+
+
+def standardized_noise(venv, states, margin=6.0):
+    """``(realized - oracle) / std`` of every gaussian window in ``states``
+    whose oracle value lies more than ``margin`` std inside the observation
+    bounds (there the clip cannot act): ``(sum, sum of squares, count)`` in
+    float64."""
+    import torch
+
+    from pymgrid_tpu_torch.core import engine
+
+    params, spec = venv.params, venv.spec
+    lifted = venv._lift(states)
+    total = torch.zeros(3, dtype=torch.float64, device=venv.device)
+    for kind in states["forecast"]:
+        for gslot, ref in enumerate(engine._gaussian_refs(spec, kind)):
+            h = ref.forecast_horizon
+            oracle = engine._oracle_window(params, ref, lifted["step"]).double()
+            realized = lifted["forecast"][kind][:, :, gslot, :h].double()
+            std = params[kind]["noise_std"][:, ref.slot, :h].unsqueeze(1).double()
+            low, high = (b.double() for b in engine._obs_bounds(params, ref))
+            inside = (oracle > low + margin * std) & (oracle < high - margin * std)
+            z = ((realized - oracle) / std)[inside.expand_as(realized)]
+            total += torch.stack([z.sum(), (z * z).sum(), torch.tensor(
+                float(z.numel()), dtype=torch.float64, device=venv.device)])
+    return total
+
+
+def phase_gaussian_env(device, batch=65536, n_steps=100, scenario=0, ref_replicas=4,
+                       profile_steps=5, trace_dir=None, atol64=1e-9, noise_tol=0.005):
+    """Engine surfaces (a): ``BatchedDiscreteEnv`` on ``scenario`` with
+    threefry-gaussian forecasts (:func:`_gaussian_discrete_env`), float32,
+    ``RandomState(0)`` actions.  The ``step()`` loop from ``reset(seed=0)``
+    and ``rollout(shared_step=True)`` from a second ``reset(seed=0)``,
+    timed, equal bitwise (rewards, dones, observations); ``seed=1`` draws
+    other observations.  The first ``ref_replicas`` in float64 on the device
+    match the same run on the CPU (the same keys: threefry splits do not
+    depend on the batch size) within ``atol64`` in every realized forecast
+    log field.  The standardized noise of the reset and the final windows
+    (:func:`standardized_noise`) has mean within ``noise_tol`` of 0 and std
+    within ``noise_tol`` of 1 (0.005: about 15 standard errors at the full
+    width's ~1e7 entries).  With ``trace_dir``, ``profile_steps`` more steps run under
+    ``torch.profiler`` for the device events and busy time per step, and
+    the idle share against the unprofiled loop's time per step."""
+    import torch
+
+    from pymgrid_tpu_torch.parallel import BatchedDiscreteEnv
+    from pymgrid_tpu_torch.utils.profiling import device_summary, trace
+
+    venv = BatchedDiscreteEnv(_gaussian_discrete_env(scenario), batch, "float32", device)
+    _check("rng" in venv.reset(seed=0), "gaussian env: the state carries no keys")
+    actions_np = np.random.RandomState(0).randint(
+        venv.n_actions, size=(n_steps, batch)).astype(np.int32)
+    actions = torch.as_tensor(actions_np, device=device)
+    venv.step(venv.reset(seed=0), actions[0])   # first launches, not timed
+
+    def step_loop():
+        states, outs = venv.reset(seed=0), []
+        for k in range(n_steps):
+            states, out = venv.step(states, actions[k], keep_logs=False)
+            outs.append(out)
+        return states, outs
+
+    (final, outs), loop_s = _timed(step_loop, device)
+    loop = {f: torch.stack([getattr(o, f) for o in outs]) for f in ("reward", "done", "obs")}
+    del outs
+    _check(bool(torch.isfinite(loop["obs"]).all()) and bool(torch.isfinite(loop["reward"]).all()),
+           "gaussian env: non-finite step outputs")
+    (_, shared), shared_s = _timed(
+        lambda: venv.rollout(venv.reset(seed=0), actions, shared_step=True), device)
+    for f in ("reward", "done", "obs"):
+        _check(torch.equal(getattr(shared, f), loop[f]),
+               f"gaussian env: rollout(shared_step=True) {f} differs from the step loop")
+    del shared
+    _, other = venv.rollout(venv.reset(seed=1), actions[:3])
+    _check(not torch.equal(other.obs, loop["obs"][:3]), "gaussian env: seed=1 drew seed 0's")
+
+    stats = standardized_noise(venv, venv.reset(seed=0)) + standardized_noise(venv, final)
+    total, squares, count = stats.tolist()
+    mean = total / count
+    std = (squares / count - mean * mean) ** 0.5
+    _check(abs(mean) <= noise_tol and abs(std - 1.0) <= noise_tol,
+           f"gaussian env: standardized noise mean {mean:.5f}, std {std:.5f} over {count:.0f}")
+
+    def run64(dev):
+        env64 = BatchedDiscreteEnv(_gaussian_discrete_env(scenario), ref_replicas, "float64", dev)
+        states, rows = env64.reset(seed=0), []
+        for k in range(n_steps):
+            states, out = env64.step(states, actions_np[k, :ref_replicas])
+            rows.append(out.log_row.cpu())
+        return torch.stack(rows)[..., _forecast_columns(env64.spec)]
+
+    gap64 = (run64(device) - run64("cpu")).abs().max().item()
+    _check(gap64 <= atol64, f"gaussian env float64: forecast log fields on the device vs "
+                            f"the CPU max abs {gap64:.3e} > {atol64}")
+
+    out = {"step_loop_s": loop_s, "shared_rollout_s": shared_s,
+           "step_loop_per_s": batch * n_steps / loop_s,
+           "shared_rollout_per_s": batch * n_steps / shared_s,
+           "noise_mean": mean, "noise_std": std, "noise_count": int(count),
+           "max_abs_f64_vs_cpu": gap64}
+    if trace_dir is not None:
+        profile_steps = min(profile_steps, n_steps)
+        states = venv.reset(seed=0)
+        with trace(str(trace_dir), device) as prof:
+            for k in range(profile_steps):
+                states, _ = venv.step(states, actions[k])
+        summary = device_summary(prof)
+        out["events_per_step"] = summary["kernels"] / profile_steps
+        out["busy_ms_per_step"] = summary["busy_ms"] / profile_steps
+        out["idle_share"] = 1.0 - out["busy_ms_per_step"] / (loop_s / n_steps * 1e3)
+    return out
+
+
+def _polynomial_fuel_cost(production):
+    """A genset cost written with array operations only: a quadratic fuel
+    curve (the callable of tests/test_engine_equivalence.py)."""
+    return 0.4 * production + 0.001 * (production * production)
+
+
+def _derated_transition_model(external_energy_change, efficiency, **kwargs):
+    """A battery transition that keeps less on charge (x0.9) and draws less
+    on discharge (/1.1) than the nominal efficiency, without branching on a
+    value (the callable of tests/test_engine_equivalence.py)."""
+    is_charge = external_energy_change >= 0
+    return (
+        external_energy_change * (0.9 * efficiency) * is_charge
+        + external_energy_change / (1.1 * efficiency) * (1 - is_charge)
+    )
+
+
+def _damped_vector_forecast(val_c, val_c_n, n):
+    """A vectorized user forecaster: the oracle window damped toward the
+    current row (the callable of tests/test_engine_equivalence.py)."""
+    return 0.9 * val_c_n + 0.1 * val_c
+
+
+def _callable_continuous_env(scenario):
+    """The host ``ContinuousMicrogridEnv`` of ``scenario`` with its battery
+    transition model, genset cost and load and pv forecasters (horizon 23)
+    replaced by the callables above."""
+    from pymgrid_tpu_torch.envs import ContinuousMicrogridEnv
+
+    env = ContinuousMicrogridEnv.from_scenario(scenario)
+    env.modules.battery[0].battery_transition_model = _derated_transition_model
+    env.modules.genset[0].genset_cost = _polynomial_fuel_cost
+    for module in (env.modules.load[0], env.modules.pv[0]):
+        module.set_forecaster(_damped_vector_forecast, forecast_horizon=23)
+    return env
+
+
+def phase_callable_env(device, batch=65536, n_steps=100, scenario=1, ref_replicas=4):
+    """Engine surfaces (b): ``BatchedContinuousEnv`` on ``scenario`` with the
+    three callables (:func:`_callable_continuous_env`), which the engine
+    calls once per replica.  ``ref_replicas`` in float64 on the device equal
+    freshly built host envs bitwise in reward, done and observation; then
+    ``batch`` replicas in float32, ``RandomState(0)`` actions, as a timed
+    ``step()`` loop and ``rollout(shared_step=True)``, equal bitwise."""
+    import torch
+
+    from pymgrid_tpu_torch.parallel import BatchedContinuousEnv
+
+    venv = BatchedContinuousEnv(_callable_continuous_env(scenario), batch, "float32", device)
+    _check(any(ref.custom_fn is not None for ref in venv.spec.controllable)
+           and any(ref.forecaster == "user" for ref in venv.spec.log_order),
+           "callable env: the spec carries no callables")
+    actions_np = np.random.RandomState(0).rand(n_steps, batch, venv.action_dim).astype(np.float32)
+    actions = torch.as_tensor(actions_np, device=device)
+
+    host = [_host_env_run(_callable_continuous_env(scenario),
+                          [actions_np[k, b].astype(np.float64) for k in range(n_steps)])
+            for b in range(ref_replicas)]
+    venv64 = BatchedContinuousEnv(_callable_continuous_env(scenario), ref_replicas, "float64",
+                                  device)
+    states = venv64.reset(seed=0)
+    for k in range(n_steps):
+        states, out = venv64.step(states, actions[k, :ref_replicas])
+        for b, (r, d, o) in enumerate(host):
+            _check(out.reward[b].item() == r[k] and bool(out.done[b]) == d[k]
+                   and np.array_equal(out.obs[b].cpu().numpy(), o[k]),
+                   f"callable env float64: step {k} replica {b} differs from the host env")
+
+    venv.step(venv.reset(seed=0), actions[0])   # first launches, not timed
+
+    def step_loop():
+        states, outs = venv.reset(seed=0), []
+        for k in range(n_steps):
+            states, out = venv.step(states, actions[k], keep_logs=False)
+            outs.append(out)
+        return outs
+
+    outs, loop_s = _timed(step_loop, device)
+    loop = {f: torch.stack([getattr(o, f) for o in outs]) for f in ("reward", "done", "obs")}
+    del outs
+    _check(bool(torch.isfinite(loop["reward"]).all()) and bool(torch.isfinite(loop["obs"]).all()),
+           "callable env: non-finite step outputs")
+    (_, shared), shared_s = _timed(
+        lambda: venv.rollout(venv.reset(seed=0), actions, shared_step=True), device)
+    for f in ("reward", "done", "obs"):
+        _check(torch.equal(getattr(shared, f), loop[f]),
+               f"callable env: rollout(shared_step=True) {f} differs from the step loop")
+    return {"step_loop_s": loop_s, "shared_rollout_s": shared_s,
+            "step_loop_per_s": batch * n_steps / loop_s,
+            "shared_rollout_per_s": batch * n_steps / shared_s}
 
 
 def _costs(rewards):
@@ -700,6 +933,25 @@ def main():
               f"replicas max rel {env['max_rel_vs_host']:.3e} vs host float64; "
               f"float64 on the card bitwise vs host env {tag}", flush=True)
 
+    # ---- engine surfaces: threefry gaussians, per-replica callables -----
+    with tempfile.TemporaryDirectory(prefix=".gauss-trace-", dir=REPO) as trace_dir:
+        ge = phase_gaussian_env(device, trace_dir=trace_dir)
+    for path, key in (("step() loop", "step_loop"), ("rollout(shared_step=True)", "shared_rollout")):
+        print(f"surfaces/gaussian discrete env, scenario 0: {path} 65536 x 100 steps in "
+              f"{ge[key + '_s']:.4f} s, {ge[key + '_per_s']:.6g} env-steps/s {tag}", flush=True)
+    print(f"surfaces/gaussian discrete env: rollout bitwise vs step loop, seed 1 differs; "
+          f"standardized noise mean {ge['noise_mean']:.6f} std {ge['noise_std']:.6f} over "
+          f"{ge['noise_count']} entries; 4 float64 replicas vs CPU, forecast log fields max "
+          f"abs {ge['max_abs_f64_vs_cpu']:.3e}; {ge['events_per_step']:.1f} device events per "
+          f"step (oracle env: 215-236), busy {ge['busy_ms_per_step']:.3f} ms per step, idle "
+          f"share {ge['idle_share']:.4f} against the unprofiled loop {tag}", flush=True)
+    ce = phase_callable_env(device)
+    for path, key in (("step() loop", "step_loop"), ("rollout(shared_step=True)", "shared_rollout")):
+        print(f"surfaces/callable continuous env, scenario 1: {path} 65536 x 100 steps in "
+              f"{ce[key + '_s']:.4f} s, {ce[key + '_per_s']:.6g} env-steps/s {tag}", flush=True)
+    print(f"surfaces/callable continuous env: float64 on the card bitwise vs host env (4 "
+          f"replicas x 100 steps); rollout bitwise vs step loop {tag}", flush=True)
+
     # ---- on-device planners (no kernel of the port on their path) --------
     sm = phase_suite_mpc(device)
     print(f"planners/suite_mpc: 25 scenarios x 48 steps, H=24: float32 chip mode "
@@ -727,8 +979,6 @@ def main():
           f"{tag}", flush=True)
 
     # ---- training: A2C, ES, the data-parallel dryrun (no kernel) ---------
-    import tempfile
-
     with tempfile.TemporaryDirectory(prefix=".a2c-trace-", dir=REPO) as trace_dir:
         a2c = phase_a2c(device, trace_dir=trace_dir)
     print(f"training/a2c: scenario 1, 4096 x 128, 5 iterations in {a2c['seconds']:.4f} s, "

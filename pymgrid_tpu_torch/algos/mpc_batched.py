@@ -34,6 +34,7 @@ import torch
 from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
 from pymgrid_tpu_torch.algos.mpc import ModelPredictiveControl
 from pymgrid_tpu_torch.core.spec import extract_spec
+from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core.engine import _gather_window, make_reset_fn, make_step_fn
 from pymgrid_tpu_torch.core.lp import make_batched_box_ipm_solver, make_batched_ipm_solver
 from pymgrid_tpu_torch.core.params import (
@@ -565,15 +566,17 @@ class BatchedMPC:
         new_states, out = self._engine_step(self.params, states, actions)
         return new_states, out, info
 
-    def _reset(self):
+    def _reset(self, seed):
         starts = self.params["initial_step"].to(torch.int32).view(1, 1)
-        return self._reset_fn(self.params, starts.expand(1, self.batch_size))
+        keys = prng.split(prng.key(seed, self.device), self.batch_size).unsqueeze(0)
+        return self._reset_fn(self.params, starts.expand(1, self.batch_size), keys)
 
     # ------------------------------------------------------------------ api
     def reset(self, seed=0):
-        """``(B, ...)`` states at the config's initial step (``seed`` draws
-        nothing: the planners' oracle forecasts are pure functions of time)."""
-        return without_config_axis(self._reset())
+        """``(B, ...)`` states at the config's initial step; ``seed`` keys
+        threefry-gaussian forecasts (``split(key(seed), B)``, as the JAX
+        class keys them) and draws nothing for other forecasters."""
+        return without_config_axis(self._reset(seed))
 
     def step(self, states):
         """Plan + act for every replica; returns ``(states, StepOutput,
@@ -584,7 +587,7 @@ class BatchedMPC:
     def run(self, n_steps, seed=0, collect_rewards=True):
         """Receding-horizon MPC for all replicas; returns the rewards
         ``(n_steps, B)`` as numpy (or ``None``) and the final states."""
-        states = self._reset()
+        states = self._reset(seed)
         rewards = []
         for _ in range(n_steps):
             states, out, _ = self._step(states)
@@ -602,5 +605,5 @@ class BatchedMPC:
             states, out = self._engine_step(self.params, states, self._plan(states)[0])
             return states, out.reward[0]
 
-        rewards, states = run_chunked(step, self._reset(), n_steps, chunk)
+        rewards, states = run_chunked(step, self._reset(seed), n_steps, chunk)
         return rewards, without_config_axis(states)

@@ -21,6 +21,7 @@ import torch
 
 from pymgrid_tpu_torch._device import numpy_dtype
 from pymgrid_tpu_torch.algos.mpc_batched import ProblemTemplate, run_chunked, series_window
+from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core.engine import make_reset_fn, make_step_fn
 from pymgrid_tpu_torch.core.lp import make_batched_box_ipm_solver, make_batched_ipm_solver
 from pymgrid_tpu_torch.core.params import tree_map
@@ -155,15 +156,17 @@ class SuiteMPC:
     def _step(self, states):
         return self._engine_step(self.params, states, self._plan(states))
 
-    def _reset(self):
+    def _reset(self, seed):
         starts = self.params["initial_step"].to(torch.int32).unsqueeze(1)
-        return self._reset_fn(self.params, starts)
+        keys = prng.split(prng.key(seed, starts.device), starts.shape[0]).unsqueeze(1)
+        return self._reset_fn(self.params, starts, keys)
 
     # ------------------------------------------------------------------ api
     def reset(self, seed=0):
-        """``(S, ...)`` states at each scenario's initial step (``seed``
-        draws nothing: the planners' forecasts are pure functions of time)."""
-        return _drop(self._reset())
+        """``(S, ...)`` states at each scenario's initial step; ``seed`` keys
+        threefry-gaussian forecasts (``split(key(seed), S)``, as the JAX
+        class keys them) and draws nothing for other forecasters."""
+        return _drop(self._reset(seed))
 
     def step(self, states):
         """Plan + act for every scenario; returns ``(states, StepOutput)``
@@ -181,5 +184,5 @@ class SuiteMPC:
             return states, out.reward[:, 0]
 
         n_steps = self.n_steps_year if n_steps is None else n_steps
-        rewards, states = run_chunked(step, self._reset(), n_steps, chunk, progress)
+        rewards, states = run_chunked(step, self._reset(seed), n_steps, chunk, progress)
         return rewards, _drop(states)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from pymgrid_tpu_torch.algos.mpc_batched import ProblemTemplate, run_chunked
+from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core.engine import _gather_window, gather_rows, make_reset_fn, make_step_fn
 from pymgrid_tpu_torch.core.params import without_config_axis, with_config_axis
 
@@ -135,9 +136,9 @@ class BatchedSAA:
         new_state, out = self._engine_step(params, state, action)
         return new_state, out, costs, chosen
 
-    def _reset(self):
+    def _reset(self, seed):
         starts = self.params["initial_step"].to(torch.int32).view(1, 1)
-        return self._reset_fn(self.params, starts)
+        return self._reset_fn(self.params, starts, prng.key(seed, starts.device).view(1, 1, 2))
 
     def _n_steps(self, n_steps):
         max_steps = self.sample_length - self.horizon
@@ -145,9 +146,10 @@ class BatchedSAA:
 
     # ------------------------------------------------------------------ api
     def reset(self, seed=0):
-        """The state at the config's initial step, unbatched leaves (``seed``
-        draws nothing: the forecasts are pure functions of time)."""
-        return _unbatch(self._reset())
+        """The state at the config's initial step, unbatched leaves; ``seed``
+        keys threefry-gaussian forecasts (``key(seed)``, as the JAX class
+        keys them) and draws nothing for other forecasters."""
+        return _unbatch(self._reset(seed))
 
     def step(self, state):
         """Sample-plan-act once; returns ``(state', StepOutput, sample_costs
@@ -162,7 +164,7 @@ class BatchedSAA:
         ``-rewards.sum()``).  Rewards are copied to the host once, at the
         end (``verbose`` prints, and so waits for the device, every ~5%)."""
         n_steps = self._n_steps(n_steps)
-        state = self._reset()
+        state = self._reset(seed)
         rewards = []
         for k in range(n_steps):
             state, out, _, chosen = self._step(state)
@@ -179,7 +181,7 @@ class BatchedSAA:
             state, out, _, _ = self._step(state)
             return state, out.reward[0, 0]
 
-        rewards, state = run_chunked(step, self._reset(), self._n_steps(n_steps), chunk)
+        rewards, state = run_chunked(step, self._reset(seed), self._n_steps(n_steps), chunk)
         return rewards.astype(np.float64), _unbatch(state)
 
 

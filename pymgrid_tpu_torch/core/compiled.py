@@ -10,7 +10,14 @@ import numpy as np
 import torch
 
 from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
-from pymgrid_tpu_torch.core.engine import check_supported, make_reset_fn, make_step_fn
+from pymgrid_tpu_torch.core import prng
+from pymgrid_tpu_torch.core.engine import (
+    _forecasts_at,
+    check_supported,
+    make_reset_fn,
+    make_step_fn,
+    needs_keys,
+)
 from pymgrid_tpu_torch.core.params import params_to_torch, with_config_axis
 from pymgrid_tpu_torch.core.spec import extract_spec
 
@@ -18,10 +25,12 @@ __all__ = ["CompiledMicrogrid"]
 
 
 class CompiledMicrogrid:
-    def __init__(self, microgrid, dtype, device="cuda", numpy_rng_noise=False):
+    def __init__(self, microgrid, dtype, device="cuda", numpy_rng_noise=False, seed=0):
         """``numpy_rng_noise``: replay the host's global-numpy-RNG gaussian
         forecast stream (snapshotted now) from a bank, so seeded
-        gaussian-forecast trajectories equal the host bitwise."""
+        gaussian-forecast trajectories equal the host bitwise.  Otherwise
+        gaussian forecasts draw from the threefry key of ``seed`` (the
+        default of :meth:`reset`), the JAX engine's draws for that seed."""
         self.device = resolve_device(device)
         self.dtype = torch_dtype(dtype)
         spec, params, self._state0 = extract_spec(microgrid, dtype=numpy_dtype(dtype))
@@ -41,15 +50,20 @@ class CompiledMicrogrid:
             False: make_step_fn(spec, normalized=False),
             True: make_step_fn(spec, normalized=True),
         }
+        self._seed = seed
 
     # ------------------------------------------------------------------ api
-    def reset(self):
-        return self._reset_fn(self.params, self.params["initial_step"].view(1, 1))
+    def reset(self, seed=None):
+        """The state at the config's initial step; ``seed`` (default: the
+        constructor's) keys the gaussian forecasts, as
+        ``jax.random.PRNGKey(seed)`` keys them in the JAX engine."""
+        key = prng.key(self._seed if seed is None else seed, self.device).view(1, 1, 2)
+        return self._reset_fn(self.params, self.params["initial_step"].view(1, 1), key)
 
-    def initial_state(self):
+    def initial_state(self, seed=None):
         """State matching the host microgrid's current (extraction-time)
         module state rather than a fresh reset."""
-        state = self.reset()
+        state = self.reset(seed)
 
         def lift(x, dtype):
             return torch.as_tensor(np.asarray(x), device=self.device).to(dtype).view(1, 1, -1)
@@ -59,6 +73,9 @@ class CompiledMicrogrid:
         state["genset"] = {
             k: lift(v, torch.int32) for k, v in self._state0["genset"].items()
         }
+        if needs_keys(self.spec):
+            state["forecast"] = _forecasts_at(self.spec, self.params, state["step"],
+                                              state["rng"])
         return state
 
     def step(self, state, action, normalized=False):
@@ -76,7 +93,7 @@ class CompiledMicrogrid:
         bitwise."""
         from pymgrid_tpu_torch.utils.checkpoint import restore_state
 
-        return restore_state(path, template=self.reset())
+        return restore_state(path, template=self.reset(seed=0))
 
     # -------------------------------------------------------- action mapping
     def action_to_arrays(self, action_dict):

@@ -21,12 +21,24 @@ suite.
 Eager PyTorch removes no dead code, so the step builds the observation and the
 log row only when asked (``with_obs`` / ``with_log``); rewards-only loops skip
 both.  Out-of-range step indices clamp, as ``lax.dynamic_slice`` does.
+
+Gaussian forecasters without the numpy noise bank draw from per-replica
+threefry keys (:mod:`pymgrid_tpu_torch.core.prng`), the same draws as the JAX
+engine's ``jax.random`` for the same key: the state then carries ``rng``
+``(C, B, 2)`` and the realized windows in ``forecast``, and the step redraws
+them at ``t + 1`` (:func:`needs_keys`; every other spec keeps the keyless
+layout).  User callables (forecasters, battery transition models, genset
+costs) run per replica under ``torch.func.vmap`` over the flattened
+``(C*B)`` axis, so they see the per-replica values and shapes they see in
+the JAX engine.
 """
+import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.overrides import TorchFunctionMode
 
-from pymgrid_tpu_torch.core import physics
+from pymgrid_tpu_torch.core import physics, prng
 from pymgrid_tpu_torch.core.numpy_sum import numpy_sum_compat
 from pymgrid_tpu_torch.core.tables import (
     logfc_table_layout,
@@ -45,9 +57,9 @@ __all__ = [
     "gather_rows",
     "slot_param",
     "check_supported",
+    "needs_keys",
+    "realized_forecast",
 ]
-
-_FOLLOW_UP = "ROADMAP.md A14 (engine surfaces after the first slice)"
 
 
 class StepOutput(NamedTuple):
@@ -61,23 +73,7 @@ class StepOutput(NamedTuple):
 
 
 def check_supported(spec):
-    """Raise for the engine surfaces this port does not cover yet."""
-    for ref in spec.log_order:
-        if ref.forecaster == "gaussian" and not spec.numpy_noise:
-            raise NotImplementedError(
-                f"({ref.name}, {ref.num}): jax-PRNG gaussian forecasts are not "
-                f"ported; build with numpy_rng_noise=True or see {_FOLLOW_UP}"
-            )
-        if ref.forecaster == "user":
-            raise NotImplementedError(
-                f"({ref.name}, {ref.num}): traced user forecaster callables are "
-                f"not ported; see {_FOLLOW_UP}"
-            )
-        if ref.custom_fn is not None:
-            raise NotImplementedError(
-                f"({ref.name}, {ref.num}): custom battery/genset callables are "
-                f"not ported; see {_FOLLOW_UP}"
-            )
+    """Raise for module kinds outside the engine's three phases."""
     for ref in spec.fixed:
         if ref.kind != "load":
             raise NotImplementedError(f"fixed-phase kind {ref.kind} unsupported")
@@ -87,6 +83,92 @@ def check_supported(spec):
     for ref in spec.flex:
         if ref.kind not in ("renewable", "balancing"):
             raise NotImplementedError(f"flex-phase kind {ref.kind} unsupported")
+
+
+def needs_keys(spec):
+    """Whether the spec draws gaussian forecasts from threefry keys (no
+    numpy noise bank): its states then carry ``rng`` and ``forecast``."""
+    return not spec.numpy_noise and any(
+        ref.forecaster == "gaussian" for ref in spec.log_order
+    )
+
+
+class _NumpyBoolArithmetic(TorchFunctionMode):
+    """``1 - mask`` as numpy and jax.numpy compute it: torch refuses to
+    subtract a bool tensor, so a user callable written for numpy (e.g.
+    ``x * (1 - (x >= 0))``) sees the mask as an integer there."""
+
+    _SUB = {torch.Tensor.__sub__, torch.Tensor.__rsub__, torch.sub,
+            torch.Tensor.sub, torch.rsub}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self._SUB:
+            args = tuple(a.long() if isinstance(a, torch.Tensor)
+                         and a.dtype == torch.bool else a for a in args)
+        return func(*args, **(kwargs or {}))
+
+
+def _per_replica(ref, fn, batch, dtype, *args):
+    """``fn(*args)`` once per replica: every tensor leaf of ``args`` (nested
+    dicts allowed) broadcasts to ``batch + its trailing shape`` and the batch
+    flattens into the one axis ``torch.func.vmap`` maps over.  The result
+    comes back as ``batch + per-replica shape`` in ``dtype``.  A callable
+    that branches on a value (or fails otherwise) raises
+    ``NotImplementedError`` with the JAX engine's guidance."""
+    n = math.prod(batch)
+
+    def flat(x):
+        if isinstance(x, dict):
+            return {k: flat(v) for k, v in x.items()}
+        x = x.expand(batch + x.shape[len(batch):])
+        return x.reshape((n,) + x.shape[len(batch):])
+
+    def call(*xs):
+        out = fn(*xs)
+        if isinstance(out, torch.Tensor):
+            return out.to(dtype)
+        return torch.as_tensor(out, dtype=dtype, device=xs[0].device)
+
+    try:
+        with _NumpyBoolArithmetic():
+            out = torch.func.vmap(call)(*[flat(a) for a in args])
+    except Exception as exc:
+        raise NotImplementedError(
+            f"The custom callable on module ({ref.name}, {ref.num}) cannot run "
+            f"per replica in the engine; use the host Microgrid.run path, or "
+            f"rewrite the callable with torch/numpy-compatible ops (no Python "
+            f"branching on values). Original error: {exc!r}"
+        ) from exc
+    return out.reshape(batch + out.shape[1:])
+
+
+def _custom_battery_transition(ref, p, i, eff, charge, max_prod, max_cons,
+                               prov, absd, dtype):
+    """A user ``battery_transition_model`` for both flow directions, called
+    with keyword arguments only, as the host module calls it: the external
+    energy change is negative for a discharge and positive for a charge, the
+    return value is the internal energy change."""
+    params = {k: slot_param(p[k], i) for k in
+              ("min_capacity", "max_capacity", "max_charge", "max_discharge",
+               "battery_cost_cycle")}
+    batch = charge.shape
+    values = dict(params, efficiency=eff, max_production=max_prod,
+                  max_consumption=max_cons, charge=charge)
+
+    def transition(external, v):
+        return ref.custom_fn(
+            external_energy_change=external,
+            min_capacity=v["min_capacity"], max_capacity=v["max_capacity"],
+            max_charge=v["max_charge"], max_discharge=v["max_discharge"],
+            efficiency=v["efficiency"], battery_cost_cycle=v["battery_cost_cycle"],
+            max_production=v["max_production"], max_consumption=v["max_consumption"],
+            state_dict={"soc": v["charge"] / v["max_capacity"],
+                        "current_charge": v["charge"]},
+        )
+
+    internal_src = _per_replica(ref, transition, batch, dtype, -1.0 * prov, values)
+    internal_snk = _per_replica(ref, transition, batch, dtype, absd, values)
+    return internal_src, internal_snk
 
 
 def slot_param(x, i):
@@ -150,6 +232,56 @@ def _numpy_noise_window(spec, params, ref, t):
     return torch.clamp(window, low, high)
 
 
+def _user_window(params, ref, t):
+    """A deterministic user forecaster's window: the callable runs per
+    replica on the fill-padded window (``custom_fn(val_c, window, h, xp)``
+    with ``val_c (f,)`` and ``window (h, f)``); rows past the data end
+    revert to the fill and the result clips to the observation bounds, the
+    host's truncate/pad/clip sequence for row-wise callables."""
+    h = ref.forecast_horizon
+    window = _oracle_window(params, ref, t)
+    val_c = _ts_row(params, ref.kind, ref.slot, t)
+    raw = _per_replica(
+        ref, lambda v, w: ref.custom_fn(v, w, h, xp), t.shape, window.dtype,
+        val_c, window,
+    ).reshape(window.shape)
+    out = torch.where(_off_end_mask(ref, t, h), raw, window)
+    low, high = _obs_bounds(params, ref)
+    return torch.clamp(out, low, high)
+
+
+def _forecasts_at(spec, params, t, key):
+    """The realized threefry-gaussian windows at step ``t``:
+    ``{kind: (C, B, n_gauss, max_h, f)}`` for ``key (C, B, 2)``.  Each
+    gaussian module, kind by kind in the order load, renewable, grid, takes
+    ``key, sub = split(key)`` and ``normal(sub, (h, f))`` as the JAX engine's
+    ``_forecasts_at`` does."""
+    out = {}
+    for kind in ("load", "renewable", "grid"):
+        refs = _gaussian_refs(spec, kind)
+        if not refs:
+            continue
+        max_h = max(ref.forecast_horizon for ref in refs)
+        rows = []
+        for ref in refs:
+            h, f = ref.forecast_horizon, ref.n_features
+            window = _oracle_window(params, ref, t)
+            pair = prng.split(key)
+            key, sub = pair[..., 0, :], pair[..., 1, :]
+            std = params[kind]["noise_std"][:, ref.slot, :h].unsqueeze(1)
+            noise = prng.normal(sub, (h, f), window.dtype) * std
+            window = window + noise * _off_end_mask(ref, t, h)
+            low, high = _obs_bounds(params, ref)
+            window = torch.clamp(window, low, high)
+            if h < max_h:
+                window = torch.cat(
+                    [window, window.new_zeros(window.shape[:-2] + (max_h - h, f))], dim=-2
+                )
+            rows.append(window)
+        out[kind] = torch.stack(rows, dim=2)
+    return out
+
+
 def _user_bank_window(params, ref, t):
     """Stochastic user forecast replayed from the realization bank."""
     h = ref.forecast_horizon
@@ -160,14 +292,21 @@ def _user_bank_window(params, ref, t):
     return torch.clamp(out, low, high)
 
 
-def realized_forecast(spec, params, ref, t):
+def realized_forecast(spec, params, ref, t, state=None):
     """Forecast window of ``ref`` valid at step ``t``, ``(C, B, h, f)``, or
-    ``None`` without a horizon.  Every ported forecaster is a pure function
-    of ``t``."""
+    ``None`` without a horizon.  Threefry-gaussian windows ride in
+    ``state["forecast"]`` (the value logged at ``t`` is the one observed at
+    the end of step ``t - 1``); every other forecaster is a pure function of
+    ``t``."""
     if ref.forecast_horizon == 0:
         return None
     if ref.forecaster == "gaussian":
-        return _numpy_noise_window(spec, params, ref, t)
+        if spec.numpy_noise:
+            return _numpy_noise_window(spec, params, ref, t)
+        gslot = [m.slot for m in _gaussian_refs(spec, ref.kind)].index(ref.slot)
+        return state["forecast"][ref.kind][:, :, gslot, : ref.forecast_horizon]
+    if ref.forecaster == "user":
+        return _user_window(params, ref, t)
     if ref.forecaster == "user_bank":
         return _user_bank_window(params, ref, t)
     return _oracle_window(params, ref, t)
@@ -177,33 +316,43 @@ def _ts_row(params, kind, slot, t):
     return gather_rows(params[kind]["ts"][:, slot], t)
 
 
-def ts_obs_part(spec, params, t, ref):
+def ts_obs_part(spec, params, t, ref, state=None):
     """Normalized observation segment of one ts module at step ``t``:
-    current row + forecast window, ``(C, B, obs_dim)``.  Also the row
-    generator of :func:`pymgrid_tpu_torch.core.tables.build_tables`, so
-    table lookups equal this expression by construction."""
+    current row + forecast window, ``(C, B, obs_dim)`` (``state`` carries
+    threefry-gaussian windows).  Also the row generator of
+    :func:`pymgrid_tpu_torch.core.tables.build_tables`, so table lookups
+    equal this expression by construction."""
     row = _ts_row(params, ref.kind, ref.slot, t)
     low = slot_param(params[ref.kind]["obs_low"], ref.slot)
     spread = slot_param(params[ref.kind]["obs_spread"], ref.slot)
     vals = [(row - low) / spread]
     if ref.forecast_horizon > 0:
-        fc = realized_forecast(spec, params, ref, t)
+        fc = realized_forecast(spec, params, ref, t, state)
         vals.append(
             ((fc - low.unsqueeze(2)) / spread.unsqueeze(2)).flatten(-2)
         )
+        # a shared (C, 1) step's row beside per-replica gaussian windows
+        lead = torch.broadcast_shapes(vals[0].shape[:-1], vals[1].shape[:-1])
+        vals = [v.expand(lead + v.shape[-1:]) for v in vals]
     return torch.cat(vals, dim=-1)
 
 
 def make_reset_fn(spec):
-    """Build ``reset(params, initial_step) -> state``.
+    """Build ``reset(params, initial_step, key=None) -> state``.
 
     ``initial_step`` is a ``(C, B)`` integer tensor of episode starts (the
     caller's randomized starts, or ``params["initial_step"]`` broadcast);
     it also fixes the replica count ``B``.  State leaves are ``(C, B, ...)``;
-    step and genset counters are int32.
+    step and genset counters are int32.  ``key`` is the replicas' threefry
+    keys ``(C, B, 2)``: a spec that :func:`needs_keys` requires them and
+    its state carries them as ``rng`` with the windows drawn from them in
+    ``forecast``; other specs ignore it.  Shared ``(C, 1)`` starts (the
+    lockstep layout) take per-replica keys too: then ``rng`` and
+    ``forecast`` are per replica and the other leaves shared.
     """
+    keyed = needs_keys(spec)
 
-    def reset(params, initial_step):
+    def reset(params, initial_step, key=None):
         t0 = initial_step.to(torch.int32)
         C, B = t0.shape
         pg = params["genset"]
@@ -214,7 +363,7 @@ def make_reset_fn(spec):
         def per_replica(x):
             return x.unsqueeze(1).expand(C, B, x.shape[-1]).contiguous()
 
-        return {
+        state = {
             "step": t0,
             "battery_charge": per_replica(params["battery"]["init_charge"]),
             "genset": {
@@ -229,6 +378,15 @@ def make_reset_fn(spec):
             },
             "forecast": {},
         }
+        if keyed:
+            if (key is None or key.dim() != 3 or key.shape[0] != C
+                    or key.shape[2] != 2 or B not in (1, key.shape[1])):
+                got = None if key is None else tuple(key.shape)
+                raise ValueError(f"this spec draws gaussian forecasts: reset needs "
+                                 f"keys of shape {(C, B, 2)}, got {got}")
+            state["rng"] = key
+            state["forecast"] = _forecasts_at(spec, params, t0, key)
+        return state
 
     return reset
 
@@ -247,6 +405,7 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True,
     """
     check_supported(spec)
     dtype = torch_dtype(spec.dtype)
+    keyed = needs_keys(spec)
     if obs_layout == "log":
         obs_order = spec.log_order
     elif obs_layout == "env":
@@ -289,7 +448,7 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True,
                     -1, (ref.forecast_horizon, ref.n_features)
                 )
             else:
-                window = realized_forecast(spec, params, ref, t)
+                window = realized_forecast(spec, params, ref, t, state)
             current = [f for f in ref.log_fields if f.endswith("_current")]
             components = [f[: -len("_current")] for f in current]
             for j in range(ref.forecast_horizon):
@@ -338,8 +497,13 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True,
                 is_sink = a < 0
                 prov = physics.clip_source(a, zero, max_prod, xp=xp)
                 absd = physics.clip_sink(-a, max_cons, xp=xp)
-                internal_src = -prov / eff
-                internal_snk = absd * eff
+                if ref.custom_fn is not None:
+                    internal_src, internal_snk = _custom_battery_transition(
+                        ref, p, i, eff, charge, max_prod, max_cons, prov, absd, dtype
+                    )
+                else:
+                    internal_src = -prov / eff
+                    internal_snk = absd * eff
                 prov = torch.where(is_sink, zero, prov)
                 absd = torch.where(is_sink, absd, zero)
                 internal = torch.where(is_sink, internal_snk, internal_src)
@@ -390,7 +554,10 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True,
                     xp=xp,
                 )
                 co2 = slot_param(p["co2_per_unit"], j) * prov
-                fuel = slot_param(p["genset_cost"], j) * prov
+                if ref.custom_fn is not None:
+                    fuel = _per_replica(ref, ref.custom_fn, prov.shape, dtype, prov)
+                else:
+                    fuel = slot_param(p["genset_cost"], j) * prov
                 reward = -1.0 * (fuel + slot_param(p["cost_per_unit_co2"], j) * co2)
                 provided.append(prov)
                 rewards.append(reward)
@@ -514,6 +681,10 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True,
             "genset": {k: _stack_slots(v, gs[k]) for k, v in new_gs.items()},
             "forecast": {},
         }
+        if keyed:
+            pair = prng.split(state["rng"])
+            new_state["rng"] = pair[..., 0, :]
+            new_state["forecast"] = _forecasts_at(spec, params, new_t, pair[..., 1, :])
 
         obs = None
         if with_obs:
@@ -589,7 +760,7 @@ def _build_obs(spec, params, state, batch, dtype, order, obs_row=None):
                 off, width = layout[(ref.name, ref.num)]
                 parts.append(obs_row[..., off : off + width])
             else:
-                parts.append(ts_obs_part(spec, params, t, ref))
+                parts.append(ts_obs_part(spec, params, t, ref, state))
         elif ref.kind == "battery":
             p = params["battery"]
             charge = state["battery_charge"][..., ref.slot]

@@ -57,12 +57,22 @@ def params_to_torch(params, device, dtype):
 def state_to_torch(state, device, dtype):
     """An engine state (numpy leaves, e.g. a JAX state fetched with
     ``np.asarray``) -> tensors.  Integer leaves (step, genset counters)
-    become int32 as in the engine; the ``rng`` key has no use here and is
-    dropped.  A JAX batched env's state (``(B, ...)`` leaves plus ``rng``)
-    thus becomes the port env's state, which continues it bitwise."""
+    become int32 as in the engine.  The ``rng`` keys (uint32 words, which
+    int32 cannot hold) become int64 and stay only where the state carries
+    threefry-gaussian windows in ``forecast``, the one layout whose states
+    keep keys in the port; elsewhere the port's states have no ``rng``.
+    A JAX batched env's state (``(B, ...)`` leaves) thus becomes the port
+    env's state, which continues it bitwise."""
     device, dtype = resolve_device(device), torch_dtype(dtype)
-    state = {k: v for k, v in state.items() if k != "rng"}
-    return tree_map(lambda x: _leaf_to_torch(x, device, dtype, torch.int32), state)
+    keyed = bool(state.get("forecast"))
+    out = tree_map(lambda x: _leaf_to_torch(x, device, dtype, torch.int32),
+                   {k: v for k, v in state.items() if k != "rng"})
+    if keyed and "rng" in state:
+        rng = state["rng"]
+        if isinstance(rng, torch.Tensor):
+            rng = rng.detach().cpu().numpy()
+        out["rng"] = torch.as_tensor(np.asarray(rng).astype(np.int64), device=device)
+    return out
 
 
 def with_config_axis(params):

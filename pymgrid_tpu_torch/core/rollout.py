@@ -63,7 +63,8 @@ def make_rollout_fn(spec, policy, n_steps, normalized=False, auto_reset=False,
     ``outputs`` is a time-major :class:`StepOutput` (every field ``(T, C, B,
     ...)``) when ``collect``, else ``(rewards, dones)`` only, each
     ``(T, C, B)``.  With ``auto_reset`` a finished replica restarts at
-    ``params["initial_step"]``.  ``normalized``: the policy emits actions in
+    ``params["initial_step"]``, re-keyed from its own ``rng`` as the JAX
+    rollout re-keys it.  ``normalized``: the policy emits actions in
     [0, 1] (e.g. :func:`make_random_policy`); the rule-based policies emit
     raw ones.
     """
@@ -77,7 +78,8 @@ def make_rollout_fn(spec, policy, n_steps, normalized=False, auto_reset=False,
             action = policy(params, state)
             new_state, out = step_fn(params, state, action)
             if auto_reset:
-                fresh = reset_fn(params, _initial_steps(params, new_state["step"]))
+                fresh = reset_fn(params, _initial_steps(params, new_state["step"]),
+                                 new_state.get("rng"))
                 new_state = select_state(out.done, fresh, new_state)
             outs.append(out if collect else (out.reward, out.done))
             state = new_state
@@ -458,8 +460,9 @@ def make_table_policy(spec, priority_lists, device="cuda"):
 def make_random_policy(spec, generator):
     """Uniform random actions in [0, 1] (for a ``normalized=True`` step),
     drawn from ``generator``, which must live on the state's device.  The
-    JAX policy draws from the threefry key in ``state["rng"]``, which torch
-    cannot reproduce: the two agree in shape and range, not in values."""
+    JAX policy draws from ``fold_in(state["rng"], 7)``, so the two agree in
+    shape and range, not in values (:mod:`pymgrid_tpu_torch.core.prng`
+    reproduces threefry; this policy does not use it yet)."""
     dtype = torch_dtype(spec.dtype)
 
     def policy(params, state):

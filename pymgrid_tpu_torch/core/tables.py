@@ -14,7 +14,9 @@ layout functions are copied here) and the same two tables:
 Each row is produced by the engine's own expressions
 (:func:`pymgrid_tpu_torch.core.engine.ts_obs_part`), evaluated with the step
 index ``arange(T)`` in the replica position, so lookups equal the dynamic path
-bit for bit.
+bit for bit; a deterministic user forecaster's rows come from the same
+per-replica ``vmap`` call as its dynamic windows.  Threefry-gaussian windows
+ride in the state and are not tabulated.
 """
 import torch
 

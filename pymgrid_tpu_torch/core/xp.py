@@ -13,11 +13,15 @@ module is that namespace for torch, so the physics runs unmodified with
 
 ``torch.round`` rounds half to even, like ``jnp.round`` and numpy, which
 ``physics.round_half_even`` relies on.
+
+The engine also hands this namespace to user forecaster callables (the JAX
+engine hands them ``jax.numpy``), and the spec's wrappers call ``asarray``,
+``stack`` and ``.reshape`` on it.
 """
 import numpy as np
 import torch
 
-__all__ = ["where", "minimum", "round", "asarray", "ones_like", "zeros_like"]
+__all__ = ["where", "minimum", "round", "asarray", "stack", "ones_like", "zeros_like"]
 
 
 def _like(value, ref):
@@ -57,6 +61,10 @@ def asarray(x):
     if isinstance(x, torch.Tensor):
         return x
     return torch.as_tensor(np.asarray(x))
+
+
+def stack(arrays, axis=0):
+    return torch.stack([asarray(a) for a in arrays], dim=axis)
 
 
 def ones_like(x):

@@ -14,11 +14,13 @@ and :func:`~pymgrid_tpu_torch.parallel.distributed.fetch` assembles outputs.
 import torch
 
 from pymgrid_tpu_torch._device import numpy_dtype, torch_dtype
+from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core.engine import (
     StepOutput,
     check_supported,
     make_reset_fn,
     make_step_fn,
+    needs_keys,
 )
 from pymgrid_tpu_torch.core.params import (
     params_to_torch,
@@ -33,7 +35,7 @@ from pymgrid_tpu_torch.parallel.distributed import (
     process_count,
 )
 
-__all__ = ["BatchedMicrogrid", "make_batch_mesh"]
+__all__ = ["BatchedMicrogrid", "make_batch_mesh", "replica_keys"]
 
 
 def make_batch_mesh(n_devices=None, device="cuda"):
@@ -45,6 +47,15 @@ def make_batch_mesh(n_devices=None, device="cuda"):
         raise ValueError(f"one process drives one device: this job has {world} "
                          f"processes, asked for {n_devices} devices")
     return global_batch_mesh(device)
+
+
+def replica_keys(spec, seed, global_size, rows, device):
+    """This rank's ``rows`` of ``split(key(seed), global_size)`` as
+    ``(1, B, 2)`` engine keys (the JAX batched reset's keys), or ``None``
+    for a spec that draws no threefry gaussians."""
+    if not needs_keys(spec):
+        return None
+    return prng.split(prng.key(seed, device), global_size)[rows].unsqueeze(0)
 
 
 def drop_config_axis(out):
@@ -73,12 +84,14 @@ class BatchedMicrogrid:
     # ------------------------------------------------------------------ api
     def reset(self, seed=0):
         """``(B, ...)`` states at the config's initial step (this rank's
-        rows with a mesh).  They do not depend on ``seed``: every forecaster
-        the port supports is a pure function of time (the JAX reset keys
-        only jax-PRNG gaussian forecasts, ROADMAP.md A14)."""
+        rows with a mesh).  ``seed`` keys threefry-gaussian forecasts: the
+        replicas take ``split(key(seed), B)`` over the global batch, as the
+        JAX class does, so meshed and unmeshed runs draw alike; other
+        forecasters draw nothing."""
         starts = self.params["initial_step"].to(torch.int32).view(1, 1)
+        keys = replica_keys(self.spec, seed, self.batch_size, self._rows, self.device)
         return without_config_axis(
-            self._reset_fn(self.params, starts.expand(1, self.local_batch_size))
+            self._reset_fn(self.params, starts.expand(1, self.local_batch_size), keys)
         )
 
     def step(self, state, action):

@@ -12,8 +12,12 @@ rows [goal, production]), denormalized by the engine like the host env's
 
 The public API has the JAX envs' shapes: ``step`` returns ``(B, ...)``
 outputs, ``rollout`` time-major ``(T, B, ...)`` ones, and states are dicts of
-``(B, ...)`` leaves (no ``rng`` leaf); the engine's config axis (``C = 1``)
-is added and removed inside.  Observations come out in the env's order
+``(B, ...)`` leaves; the engine's config axis (``C = 1``) is added and
+removed inside.  A spec with threefry-gaussian forecasts keeps the JAX
+leaves ``rng`` ``(B, 2)`` and ``forecast``: ``reset(seed)`` keys the
+replicas with ``split(key(seed), B)`` over the global batch and an
+auto-reset re-keys a replica from its own ``rng``, so the port draws the
+JAX env's forecasts for the same seed; other specs carry no ``rng``.  Observations come out in the env's order
 (``obs_layout="env"``); ``obs_layout="log"`` gives the engine's container
 order instead, the layout the training examples feed their MLPs.
 
@@ -52,7 +56,7 @@ from pymgrid_tpu_torch.core.params import (
 from pymgrid_tpu_torch.core.rollout import make_table_policy, select_state
 from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.core.tables import ensure_tables
-from pymgrid_tpu_torch.parallel.batch import drop_config_axis
+from pymgrid_tpu_torch.parallel.batch import drop_config_axis, replica_keys
 from pymgrid_tpu_torch.parallel.distributed import local_layout
 
 __all__ = ["BatchedDiscreteEnv", "BatchedContinuousEnv"]
@@ -119,7 +123,8 @@ class _BatchedEnv:
                                   self._engine_action(states, actions))
         if self.auto_reset:
             starts = self.params["initial_step"].to(torch.int32).unsqueeze(1)
-            fresh = self._reset_fn(self.params, starts.expand(new_states["step"].shape))
+            fresh = self._reset_fn(self.params, starts.expand(new_states["step"].shape),
+                                   new_states.get("rng"))
             new_states = select_state(out.done, fresh, new_states)
         return new_states, out
 
@@ -134,13 +139,14 @@ class _BatchedEnv:
     # ------------------------------------------------------------------ api
     def reset(self, seed=0):
         """``(B, ...)`` initial states (this rank's rows with a mesh;
-        observations come from step outputs).  They do not depend on
-        ``seed``: every forecaster the port supports is a pure function of
-        time (the JAX reset keys only jax-PRNG gaussian forecasts, ROADMAP.md
-        A14)."""
+        observations come from step outputs).  ``seed`` keys
+        threefry-gaussian forecasts (``split(key(seed), B)`` over the global
+        batch, so meshed and unmeshed runs draw alike); other forecasters
+        draw nothing."""
         starts = self.params["initial_step"].to(torch.int32).view(1, 1)
+        keys = replica_keys(self.spec, seed, self.batch_size, self._rows, self.device)
         return without_config_axis(
-            self._reset_fn(self.params, starts.expand(1, self.local_batch_size))
+            self._reset_fn(self.params, starts.expand(1, self.local_batch_size), keys)
         )
 
     def step(self, states, actions, keep_logs=True):
@@ -163,7 +169,7 @@ class _BatchedEnv:
         ``shared_step=True`` needs states whose replicas share the step (as
         ``reset()`` returns them); the final states keep one shared step of
         shape ``(1,)``: pass them back only to another ``shared_step``
-        rollout."""
+        rollout.  Keys and gaussian windows stay per replica."""
         action_seq = self._actions(action_seq, time_major=True)
         n_steps = action_seq.shape[0]
         states = self._lift(states)
@@ -184,17 +190,29 @@ class _BatchedEnv:
         return without_config_axis(states), StepOutput(*buffers)
 
     def save_states(self, path, states):
-        """Checkpoint a batch state to the file ``path``."""
-        from pymgrid_tpu_torch.utils.checkpoint import save_state
+        """Checkpoint a batch state (every leaf, ``rng`` and ``forecast``
+        included): to the file ``path``, or with a mesh to the directory
+        ``path``, one file per rank holding its rows
+        (:func:`~pymgrid_tpu_torch.utils.checkpoint.save_rank_state`; the
+        files together are the global batch)."""
+        from pymgrid_tpu_torch.utils import checkpoint
 
-        save_state(path, states)
+        if self.mesh is None:
+            checkpoint.save_state(path, states)
+        else:
+            checkpoint.save_rank_state(path, states, self.mesh, self.batch_size)
 
     def restore_states(self, path):
-        """Restore a checkpoint onto this env's device and dtypes; resuming
-        from it is bitwise-identical to an uninterrupted run."""
-        from pymgrid_tpu_torch.utils.checkpoint import restore_state
+        """Restore a checkpoint onto this env's device and dtypes (with a
+        mesh: this rank's own rows; ``ValueError`` for a checkpoint saved at
+        another world size); resuming from it is bitwise-identical to an
+        uninterrupted run."""
+        from pymgrid_tpu_torch.utils import checkpoint
 
-        return restore_state(path, template=self.reset())
+        template = self.reset()
+        if self.mesh is None:
+            return checkpoint.restore_state(path, template=template)
+        return checkpoint.restore_rank_state(path, template, self.mesh, self.batch_size)
 
 
 class BatchedDiscreteEnv(_BatchedEnv):

@@ -7,9 +7,13 @@ so all configs share one :class:`~pymgrid_tpu_torch.core.spec.MicrogridSpec`;
 params stack along a leading config axis and the engine steps ``(C, B)`` = configs x replicas at once.
 
 Episode starts are an explicit ``(C, B)`` input: the JAX runner draws them
-from ``jax.random`` keys, which torch cannot reproduce, so the port takes
-them from the caller (:meth:`SuiteRunner.draw_initial_steps` draws them from a
-seeded ``torch.Generator``).  Only the per-step path is ported; the JAX
+from its replicas' ``jax.random`` keys, the port takes them from the caller
+(:meth:`SuiteRunner.draw_initial_steps` draws them from a seeded
+``torch.Generator``, so they differ from the JAX runner's for the same
+seed).  Threefry-gaussian forecasts do draw from per-replica keys,
+``split(key(seed), C*B)`` as the JAX runner's ``make_keys`` gives them
+(:meth:`SuiteRunner.make_keys`), and auto-resets re-key from each replica's
+own ``rng``.  Only the per-step path is ported; the JAX
 runner's block-prefetch mode is a TPU gather optimisation left for later
 (ROADMAP.md A15).  Collected outputs come back as ``(C, B, T, ...)``.
 """
@@ -17,8 +21,14 @@ import numpy as np
 import torch
 
 from pymgrid_tpu_torch._device import numpy_dtype, torch_dtype
+from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core.spec import extract_spec
-from pymgrid_tpu_torch.core.engine import StepOutput, make_reset_fn, make_step_fn
+from pymgrid_tpu_torch.core.engine import (
+    StepOutput,
+    make_reset_fn,
+    make_step_fn,
+    needs_keys,
+)
 from pymgrid_tpu_torch.core.params import params_to_torch, stack_configs, tree_map
 from pymgrid_tpu_torch.core.rollout import select_state
 from pymgrid_tpu_torch.core.tables import ensure_tables
@@ -182,6 +192,13 @@ class SuiteRunner:
         ]
         return torch.stack(draws).to(torch.int32).to(self.device)
 
+    def make_keys(self, seed=0):
+        """``(C, B, 2)`` threefry keys, ``split(key(seed), C*B)`` as the JAX
+        runner's ``make_keys``: every config's, also with a mesh."""
+        keys = prng.split(prng.key(seed, self.device),
+                          self.n_configs * self.batch_per_config)
+        return keys.view(self.n_configs, self.batch_per_config, 2)
+
     def fixed_initial_steps(self):
         """``(C, B)`` starts at every config's ``initial_step``."""
         return (self._initial_step.to(torch.int32).unsqueeze(1)
@@ -189,7 +206,10 @@ class SuiteRunner:
 
     def rollout_fn(self, policy, n_steps, auto_reset=True, collect=False,
                    randomize_initial_step=False):
-        """``(params, initial_steps, generator=None) -> outputs``.
+        """``(params, initial_steps, generator=None, keys=None) -> outputs``.
+
+        ``keys`` (every config's, :meth:`make_keys`) key threefry-gaussian
+        forecasts; a spec that draws them defaults to ``make_keys(0)``.
 
         With ``collect=False`` (throughput mode) returns the ``(C, B)``
         reward + obs checksum per env; with ``collect=True`` returns
@@ -219,7 +239,9 @@ class SuiteRunner:
                 return self.draw_initial_steps(generator)[self._configs]
             return i0.expand(new_state["step"].shape)
 
-        def suite_rollout(params, initial_steps, generator=None):
+        keyed = needs_keys(spec)
+
+        def suite_rollout(params, initial_steps, generator=None, keys=None):
             if tuple(initial_steps.shape) != (self.n_configs, self.batch_per_config):
                 raise ValueError(
                     f"initial_steps must be (n_configs, batch_per_config) = "
@@ -227,7 +249,10 @@ class SuiteRunner:
                     f"{tuple(initial_steps.shape)}"
                 )
             initial_steps = initial_steps[self._configs]
-            states = reset_fn(params, initial_steps)
+            if keyed:
+                keys = (self.make_keys(0) if keys is None else keys)[self._configs]
+                keys = keys.to(initial_steps.device)
+            states = reset_fn(params, initial_steps, keys)
             acc = torch.zeros(initial_steps.shape, dtype=self.dtype,
                               device=initial_steps.device)
             outs = []
@@ -235,7 +260,8 @@ class SuiteRunner:
                 action = policy(params, states)
                 new_states, out = step_fn(params, states, action)
                 if auto_reset:
-                    fresh = reset_fn(params, reset_target(params, new_states, generator))
+                    fresh = reset_fn(params, reset_target(params, new_states, generator),
+                                     new_states.get("rng"))
                     new_states = select_state(out.done, fresh, new_states)
                 states = new_states
                 acc = acc + out.reward + out.obs.sum(dim=-1)

@@ -2,10 +2,22 @@
 
 Port of :mod:`pymgrid_tpu.utils.checkpoint`.  An engine state is a nested
 dict of tensors: step and genset counters, battery charges (per replica for
-the batched envs).  :func:`save_state` writes it with ``torch.save`` from the
-CPU, so a state saved on the card restores on a machine without one;
+the batched envs), and threefry keys and realized gaussian windows where
+the spec draws them.  :func:`save_state` writes it with ``torch.save`` from
+the CPU, so a state saved on the card restores on a machine without one;
 :func:`restore_state` reads it with ``torch.load(weights_only=True)``, which
 unpickles tensors and containers only.
+
+A batch sharded over a data-parallel job (a
+:class:`~pymgrid_tpu_torch.parallel.distributed.BatchMesh`) is saved by
+:func:`save_rank_state`: every rank writes its own rows to its own file in
+one directory, so the files together hold the global batch in rank order,
+as the JAX package's orbax checkpoint holds the global sharded array.
+:func:`restore_rank_state` gives each rank its own rows back and refuses a
+restore at another world size or global batch.  Unlike the JAX
+``save_state(path, state, *, force=True)``, which always writes a
+directory, the port's unsharded :func:`save_state` writes one file and
+always overwrites it.
 
 Resume is exact: restoring a state and continuing produces the same
 trajectory, bitwise, as an uninterrupted run (tests/test_torch_checkpoint.py).
@@ -16,7 +28,7 @@ import torch
 
 from pymgrid_tpu_torch.core.params import tree_map
 
-__all__ = ["save_state", "restore_state"]
+__all__ = ["save_state", "restore_state", "save_rank_state", "restore_rank_state"]
 
 
 def save_state(path, state):
@@ -38,6 +50,38 @@ def restore_state(path, template=None):
     if template is None:
         return state
     return _onto(state, template, "state")
+
+
+def _rank_file(path, world_size, rank):
+    return os.path.join(os.fspath(path), f"rank{rank}-of-{world_size}.pt")
+
+
+def save_rank_state(path, state, mesh, global_size):
+    """Write this rank's rows of a ``global_size`` batch state to the
+    directory ``path`` (created), as ``rank{r}-of-{w}.pt`` with the layout
+    it was saved under."""
+    layout = torch.tensor([mesh.world_size, mesh.rank, global_size])
+    save_state(_rank_file(path, mesh.world_size, mesh.rank),
+               {"layout": layout, "state": state})
+
+
+def restore_rank_state(path, template, mesh, global_size):
+    """This rank's rows from a directory written by :func:`save_rank_state`,
+    onto ``template``'s devices and dtypes.  ``ValueError`` when the
+    checkpoint was saved at another world size or global batch."""
+    file = _rank_file(path, mesh.world_size, mesh.rank)
+    if not os.path.exists(file):
+        saved = sorted(f for f in os.listdir(path) if f.endswith(".pt")) \
+            if os.path.isdir(path) else []
+        raise ValueError(f"no checkpoint for rank {mesh.rank} of {mesh.world_size} "
+                         f"in {os.fspath(path)!r} (found {saved}): a sharded "
+                         f"checkpoint restores only at the world size it was saved at")
+    stored = restore_state(file)
+    want = [mesh.world_size, mesh.rank, global_size]
+    if stored["layout"].tolist() != want:
+        raise ValueError(f"checkpoint {file!r} holds the layout (world size, rank, "
+                         f"global batch) {stored['layout'].tolist()}, not {want}")
+    return _onto(stored["state"], template, "state")
 
 
 def _onto(stored, template, where):

@@ -126,3 +126,33 @@ def test_batched_env_resume(tmp_path, make_env):
         restored, out = env.step(restored, a)
         np.testing.assert_array_equal(out.reward.numpy(), want)
     _assert_same_state(restored, ref)
+
+
+def test_meshed_ranks_restore_their_own_rows(tmp_path):
+    """Two ``BatchMesh`` ranks of one job, in one process: each saves its
+    rows of the global batch to the same checkpoint path and restores them.
+    Each rank gets its own rows back (scenario 1, 8 replicas, 30 random
+    steps, float64), and a restore at another world size is refused."""
+    from pymgrid_tpu_torch.parallel import BatchMesh
+
+    cpu = torch.device("cpu")
+    envs = [BatchedContinuousEnv(ContinuousMicrogridEnv.from_scenario(1), 8, "float64",
+                                 mesh=BatchMesh(2, rank, cpu)) for rank in range(2)]
+    rng = np.random.RandomState(0)
+    seq = [envs[0].sample_actions(rng) for _ in range(30)]
+    states = []
+    for env in envs:
+        s = env.reset()
+        for a in seq:
+            s, _ = env.step(s, a)
+        states.append(s)
+    assert not torch.equal(states[0]["battery_charge"], states[1]["battery_charge"])
+    for env, s in zip(envs, states):
+        env.save_states(tmp_path / "job", s)
+    for env, s in zip(envs, states):
+        _assert_same_state(env.restore_states(tmp_path / "job"), s)
+
+    wider = BatchedContinuousEnv(ContinuousMicrogridEnv.from_scenario(1), 8, "float64",
+                                 mesh=BatchMesh(4, 0, cpu))
+    with pytest.raises(ValueError, match="world size"):
+        wider.restore_states(tmp_path / "job")

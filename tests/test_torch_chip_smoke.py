@@ -54,6 +54,22 @@ def test_env_phase_cpu(phase):
     assert out["step_loop_per_s"] > 0 and out["lean_rollout_per_s"] > 0
 
 
+def test_gaussian_env_phase_cpu(tmp_path):
+    """64 replicas x 8 steps: the loop-vs-rollout, seed, float64 and noise
+    checks (the noise held to 0.1 at ~4e3 entries) and the profiled steps
+    (a CPU capture records no device events)."""
+    out = chip_smoke.phase_gaussian_env("cpu", batch=64, n_steps=8, noise_tol=0.1,
+                                        trace_dir=tmp_path / "trace")
+    assert out["max_abs_f64_vs_cpu"] == 0.0 and out["noise_count"] > 1000
+    assert out["events_per_step"] == 0 and out["idle_share"] == 1.0
+    assert out["step_loop_per_s"] > 0
+
+
+def test_callable_env_phase_cpu():
+    out = chip_smoke.phase_callable_env("cpu", batch=64, n_steps=8)
+    assert out["step_loop_per_s"] > 0 and out["shared_rollout_per_s"] > 0
+
+
 def test_suite_mpc_phase_cpu():
     """Scenarios 0-4 x 3 steps: float32 chip mode against float64."""
     out = chip_smoke.phase_suite_mpc("cpu", n_scenarios=5, n_steps=3)

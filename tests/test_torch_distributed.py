@@ -140,14 +140,16 @@ def _free_port():
 
 
 @pytest.mark.timeout(300)
-def test_two_process_gloo():
+def test_two_process_gloo(tmp_path):
     """Two ranks over gloo: the feed/fetch round trip and an all_reduce, a
-    meshed ``BatchedDiscreteEnv`` rollout bitwise against one process, and a
-    2-rank A2C step with fed actions against the 1-rank full-batch step at
+    meshed ``BatchedDiscreteEnv`` rollout bitwise against one process, a
+    checkpoint of the meshed env that gives each rank its own rows back, and
+    a 2-rank A2C step with fed actions against the 1-rank full-batch step at
     rtol 1e-6 (see ``_worker``)."""
     port = _free_port()
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, __file__, str(rank), str(port)], cwd=REPO,
+    procs = [subprocess.Popen([sys.executable, __file__, str(rank), str(port),
+                               str(tmp_path / "ckpt")], cwd=REPO,
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
              for rank in range(2)]
@@ -165,7 +167,7 @@ def test_two_process_gloo():
         assert f"rank {rank} OK" in out, out
 
 
-def _worker(rank, port):
+def _worker(rank, port, ckpt_dir):
     assert dist.initialize(f"127.0.0.1:{port}", 2, rank, device="cpu")
     try:
         mesh = dist.global_batch_mesh("cpu")
@@ -194,6 +196,19 @@ def _worker(rank, port):
             np.testing.assert_array_equal(dist.fetch(getattr(outs, field), axis=1),
                                           getattr(want, field).numpy(), err_msg=field)
 
+        # both ranks checkpoint to one path; each restores its own rows
+        states = meshed.reset()
+        for t in range(T):
+            states, _ = meshed.step(states, seq[t])
+        meshed.save_states(ckpt_dir, states)
+        torch.distributed.barrier()
+        back = meshed.restore_states(ckpt_dir)
+        for leaf, want_leaf in ((back["battery_charge"], states["battery_charge"]),
+                                (back["step"], states["step"])):
+            assert leaf.dtype == want_leaf.dtype and torch.equal(leaf, want_leaf)
+        np.testing.assert_array_equal(dist.fetch(back["battery_charge"]),
+                                      dist.fetch(states["battery_charge"]))
+
         # a 2-rank A2C step with fed actions equals the 1-rank full-batch step
         kw = dict(scenario=0, batch=B, rollout_len=6, device="cpu")
         run2, run1 = build_training(mesh=mesh, **kw), build_training(**kw)
@@ -215,4 +230,4 @@ def _worker(rank, port):
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), int(sys.argv[2]))
+    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
