@@ -22,8 +22,9 @@ which fails the run on error:
               in float64 over the first 2000 steps of the year (held bitwise
               against the golden stream);
               the 25-config suite (20480 replicas per config x 1000 steps,
-              float32, randomized starts, auto-reset; held against the same
-              rollout on the CPU in float64 for 4 replicas per config).
+              float32, randomized starts drawn from ``make_keys(0)`` and
+              equal to the CPU's, auto-reset; held against the same rollout
+              on the CPU in float64 for 4 replicas per config).
 3. envs       the batched RL envs through their user entry points at
               ``bench.py``'s widths (65536 replicas x 100 steps, float32):
               ``BatchedDiscreteEnv`` on scenario 0 and ``BatchedContinuousEnv``
@@ -46,17 +47,20 @@ which fails the run on error:
               65536 x 100 float32 timed, the rollout bitwise against the loop.
 5. planners   the on-device planners through their user entry points:
               ``SuiteMPC`` over all 25 pymgrid25 scenarios at horizon 24 for
-              48 steps in the published chip mode (float32, box IPM,
+              24 steps in the published chip mode (float32, box IPM,
               ``enum_bits=3``, ``enum_chunk=16``, ``iters=60``,
-              ``newton_refine=2``) and the same 48 steps in float64, held to
+              ``newton_refine=2``) and the same 24 steps in float64, held to
               2% on scenarios 0, 4 and 1; ``BatchedMPC`` on scenario 1 (genset
-              MILP, ``enum_bits=5``) with 1024 float32 replicas (all equal
-              bitwise, within 2% of float64) and one float64 replica with the
-              host fallback (within 1e-4 of the host HiGHS MILP MPC, fallback
-              count as on the CPU); ``BatchedSAA`` on scenario 0 with every
-              sample the real data (equal to ``BatchedMPC`` at rtol 1e-5) and
-              with 10 sampled futures (finite rewards, the pick at the median
-              of the sorted costs).  24 steps each.
+              MILP, ``enum_bits=5``) with one float64 replica with the host
+              fallback (within 1e-4 of the host HiGHS MILP MPC, fallback
+              count as on the CPU) and 1024 float32 replicas over its first 6
+              steps (all equal bitwise, within 2% of float64 over those
+              steps); ``BatchedSAA`` on scenario 0 with every sample the
+              real data (equal to ``BatchedMPC`` at rtol 1e-5) and with 10
+              sampled futures (finite rewards, the pick at the median of the
+              sorted costs).  24 steps each, but the float32 ``BatchedMPC``'s
+              6.  Depth cuts for the time limit when phases 8-10 came in:
+              ``SuiteMPC`` from 48 steps, the float32 ``BatchedMPC`` from 24.
 6. training   ``pymgrid_tpu_torch.examples`` at the published widths: A2C on
               scenario 1 (4096 replicas x 128-step rollouts, MLP 64-64,
               entropy 0.02): one iteration with fed actions held against the
@@ -73,7 +77,23 @@ which fails the run on error:
               and on scenario 1 (genset, weak grid) at 4096 x 8759; kernel and
               plain times, and the kernel's bound.
 
-Every time printed carries the card's name and power limit.  The line before
+8. keys       JAX's draws on the card: ``make_random_policy`` at 65536
+              replicas of scenario 0 (one draw and step; actions bitwise vs
+              the CPU); the suite's collect rollout with randomized restarts
+              (25 x 1024 x 20, float32; dones bitwise vs the CPU, device
+              events per step under ``torch.profiler`` beside fixed
+              restarts).
+9. tables     ``pymgrid_tpu_torch.tools.run_benchmarks``: the RBC mode on
+              scenario 0 over the full year in float64 (956,059.66 to the
+              cent, as ``RESULTS.md``) and ``--mpc-suite`` over scenarios 0
+              and 1 at 24 steps (finite, the report parsed back), writing
+              into a temporary directory.
+10. examples  ``pymgrid_tpu_torch.examples.scenario0_structure`` at the full
+              8758 steps, held against ``docs/captures/scenario0_structure.log``
+              (returns at rtol 1e-5, every other line identical).
+
+Phases 8-10 run before phase 7.  Every time printed carries the card's name
+and power limit.  The line before
 the last is the kernels' JSON record; the last line is the result JSON.
 """
 import json
@@ -244,29 +264,37 @@ def phase_golden(device, scenario=1, max_steps=None):
 def phase_suite(device, n_configs, replicas, n_steps, ref_replicas=4, seed=0,
                 rtol=1e-4):
     """Main path, suite: ``n_configs`` scenarios x ``replicas`` in float32
-    with randomized starts and auto-reset; the first ``ref_replicas`` of
-    every config are held against the same rollout on the CPU in float64
-    at rtol 1e-4 (float32 against float64 over ``n_steps`` steps)."""
+    with randomized starts drawn from ``make_keys(seed)`` (the JAX runner's
+    draws) and auto-reset; the starts equal those drawn on the CPU
+    (``torch.equal``), and the first ``ref_replicas`` of every config are
+    held against the same rollout on the CPU in float64 at rtol 1e-4
+    (float32 against float64 over ``n_steps`` steps)."""
     import torch
 
     from pymgrid_tpu_torch import Microgrid
     from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
     from pymgrid_tpu_torch.parallel import SuiteRunner
 
-    def run(dev, dtype, batch, starts):
+    def runner_on(dev, dtype, batch):
         mgs = [Microgrid.from_scenario(n) for n in range(n_configs)]
-        runner = SuiteRunner(mgs, batch_per_config=batch, dtype=dtype, device=dev)
+        return SuiteRunner(mgs, batch_per_config=batch, dtype=dtype, device=dev)
+
+    def run(dev, dtype, batch, starts):
+        runner = runner_on(dev, dtype, batch)
         fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), n_steps,
                                auto_reset=True, collect=False,
                                randomize_initial_step=True)
         if starts is None:
-            starts = runner.draw_initial_steps(torch.Generator().manual_seed(seed))
+            starts = runner.draw_initial_steps(runner.make_keys(seed))
         acc, seconds = _timed(lambda: fn(runner.params, starts.to(runner.device)), dev)
         return acc, starts, seconds
 
     acc, starts, seconds = run(device, "float32", replicas, None)
     _check(acc.shape == (n_configs, replicas) and bool(torch.isfinite(acc).all()),
            "suite: non-finite or misshapen output")
+    cpu = runner_on("cpu", "float32", replicas)
+    _check(torch.equal(starts.cpu(), cpu.draw_initial_steps(cpu.make_keys(seed))),
+           "suite: the starts drawn on the card differ from the CPU's")
     ref, _, _ = run("cpu", "float64", ref_replicas, starts[:, :ref_replicas].cpu())
     got = acc[:, :ref_replicas].double().cpu()
     rel = ((got - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
@@ -647,23 +675,26 @@ def phase_suite_mpc(device, n_scenarios=25, n_steps=48, held=(0, 4, 1), rtol=0.0
             "max_rel_gap": float(gap.max()), "held_max_rel_gap": float(gap[list(held)].max())}
 
 
-def phase_batched_mpc(device, batch=1024, n_steps=24, scenario=1, expected_fallbacks=0,
-                      rtol32=0.02, rtol_host=1e-4):
-    """``BatchedMPC`` on scenario 1 (genset MILP, ``enum_bits=5``): ``batch``
-    float32 replicas without host fallback, all bitwise equal (deterministic
-    copies) and within ``rtol32`` of the float64 run; one float64 replica
-    with the host fallback, within ``rtol_host`` of the host HiGHS MILP MPC
+def phase_batched_mpc(device, batch=1024, n_steps=24, n_steps32=6, scenario=1,
+                      expected_fallbacks=0, rtol32=0.02, rtol_host=1e-4):
+    """``BatchedMPC`` on scenario 1 (genset MILP, ``enum_bits=5``): one
+    float64 replica with the host fallback over ``n_steps`` hours, within
+    ``rtol_host`` of the host HiGHS MILP MPC
     (``tests/test_lp_mpc.py::test_batched_mpc_genset_milp_matches_host``)
     with the fallback count of the port's CPU run
-    (``tests/test_torch_mpc_genset.py``)."""
+    (``tests/test_torch_mpc_genset.py``); ``batch`` float32 replicas without
+    host fallback over the first ``n_steps32`` of those hours, all bitwise
+    equal (deterministic copies) and within ``rtol32`` of the float64 run's
+    cost over the same hours.  The float32 width is device-bound at ~6.7 s
+    per hour, so it runs the shorter prefix."""
     from pymgrid_tpu_torch import Microgrid
     from pymgrid_tpu_torch.algos import BatchedMPC, ModelPredictiveControl
 
     mg = lambda: Microgrid.from_scenario(scenario)
     f32 = BatchedMPC(mg(), batch_size=batch, dtype="float32", device=device, enum_bits=5,
                      host_fallback=False)
-    (r32, _), s32 = _timed(lambda: f32.run_scanned(n_steps), device)
-    _check(r32.shape == (n_steps, batch) and np.isfinite(r32).all(),
+    (r32, _), s32 = _timed(lambda: f32.run_scanned(n_steps32), device)
+    _check(r32.shape == (n_steps32, batch) and np.isfinite(r32).all(),
            "batched MPC float32: non-finite or misshapen rewards")
     _check(bool((r32 == r32[:, :1]).all()), "batched MPC float32: replicas differ")
 
@@ -673,18 +704,20 @@ def phase_batched_mpc(device, batch=1024, n_steps=24, scenario=1, expected_fallb
     log = ModelPredictiveControl(mg()).run(max_steps=n_steps)
     host = float(-log[("balance", 0, "reward")].sum())
     cost32, cost64 = float(_costs(r32[:, :1])[0]), float(_costs(r64)[0])
+    prefix64 = float(_costs(r64[:n_steps32])[0])
     rel_host = abs(cost64 - host) / abs(host)
-    rel32 = abs(cost32 - cost64) / abs(cost64)
+    rel32 = abs(cost32 - prefix64) / abs(prefix64)
     _check(rel_host < rtol_host, f"batched MPC float64 cost {cost64:.4f} vs host HiGHS "
                                  f"{host:.4f}: rel {rel_host:.3e}")
-    _check(rel32 < rtol32, f"batched MPC float32 cost {cost32:.4f} vs float64 {cost64:.4f}")
+    _check(rel32 < rtol32, f"batched MPC float32 cost {cost32:.4f} vs float64 "
+                           f"{prefix64:.4f} over {n_steps32} hours")
     _check(f64.fallback_count == expected_fallbacks,
            f"batched MPC float64: {f64.fallback_count} host fallbacks, "
            f"{expected_fallbacks} on the CPU")
     return {"cost32": cost32, "cost64": cost64, "host_cost": host, "rel_host": rel_host,
-            "rel32": rel32, "seconds32": s32, "seconds64": s64,
-            "ms_per_hour32": s32 / n_steps * 1e3, "ms_per_hour64": s64 / n_steps * 1e3,
-            "fallback_count": f64.fallback_count}
+            "rel32": rel32, "seconds32": s32, "seconds64": s64, "n_steps": n_steps,
+            "n_steps32": n_steps32, "ms_per_hour32": s32 / n_steps32 * 1e3,
+            "ms_per_hour64": s64 / n_steps * 1e3, "fallback_count": f64.fallback_count}
 
 
 def phase_saa(device, n_steps=24, n_samples=10, scenario=0, seed=0):
@@ -844,6 +877,174 @@ def phase_dryrun(device):
     return {**result, "seconds": seconds}
 
 
+def phase_random_policy(device, batch=65536, scenario=0, seed=0):
+    """``make_random_policy`` (float32) at ``batch`` replicas of ``scenario``
+    keyed by ``split(key(seed), batch)``: one policy call and one
+    ``normalized=True`` step, timed after a first call.  The actions equal
+    the same draw on the CPU bitwise (float32 uniforms are built from
+    threefry bits); the rewards are finite."""
+    import torch
+
+    from pymgrid_tpu_torch import Microgrid
+    from pymgrid_tpu_torch.core import prng
+    from pymgrid_tpu_torch.core.engine import make_reset_fn, make_step_fn
+    from pymgrid_tpu_torch.core.params import params_to_torch, with_config_axis
+    from pymgrid_tpu_torch.core.rollout import make_random_policy
+    from pymgrid_tpu_torch.core.spec import extract_spec
+
+    spec, params, _ = extract_spec(Microgrid.from_scenario(scenario), dtype=np.float32)
+    policy, step = make_random_policy(spec), make_step_fn(spec, normalized=True)
+
+    def run(dev):
+        tparams = with_config_axis(params_to_torch(params, dev, torch.float32))
+        starts = tparams["initial_step"].to(torch.int32).view(1, 1).expand(1, batch)
+        state = make_reset_fn(spec)(tparams, starts, prng.split(prng.key(seed, dev), batch)[None])
+
+        def one():
+            action = policy(tparams, state)
+            return action, step(tparams, state, action)[1]
+
+        one()
+        return _timed(one, dev)
+
+    (action, out), seconds = run(device)
+    (want, _), _ = run("cpu")
+    for k in want:
+        _check(torch.equal(action[k].cpu(), want[k]),
+               f"random policy: {k} actions on the card differ from the CPU's")
+    _check(bool(torch.isfinite(out.reward).all()), "random policy: non-finite rewards")
+    return {"seconds": seconds, "n_actions": sum(v.numel() for v in want.values())}
+
+
+def phase_suite_collect(device, n_configs=25, replicas=1024, n_steps=20, seed=0,
+                        trace_dir=None, profile_steps=(4, 8), min_restarts=1):
+    """The suite's collect rollout (float32) with randomized restarts: every
+    step splits the replicas' keys and draws a start from them (kept where
+    ``done``), as the JAX runner does.  Timed over ``n_steps``; its dones
+    equal the CPU run's from the same keys, with at least ``min_restarts``
+    restarts (about 58 expected at the default shape: a start within 20
+    steps of the year's end).  With
+    ``trace_dir``, device events per step under ``torch.profiler`` (the
+    difference of two rollouts of ``profile_steps`` steps, so the reset
+    cancels), beside the same collect rollout with fixed restarts, which
+    carries no keys."""
+    import torch
+
+    from pymgrid_tpu_torch import Microgrid
+    from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
+    from pymgrid_tpu_torch.parallel import SuiteRunner
+    from pymgrid_tpu_torch.utils.profiling import device_summary, trace
+
+    def runner_on(dev):
+        mgs = [Microgrid.from_scenario(n) for n in range(n_configs)]
+        return SuiteRunner(mgs, batch_per_config=replicas, dtype="float32", device=dev)
+
+    def rollout(runner, steps, randomize=True):
+        fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), steps,
+                               auto_reset=True, collect=True, randomize_initial_step=randomize)
+        keys = runner.make_keys(seed)
+        return fn(runner.params, runner.draw_initial_steps(keys), keys)
+
+    runner = runner_on(device)
+    rollout(runner, 1)                       # first launches, not timed
+    (_, outs), seconds = _timed(lambda: rollout(runner, n_steps), device)
+    _, want = rollout(runner_on("cpu"), n_steps)
+    restarts = int(want.done.sum())
+    _check(torch.equal(outs.done.cpu(), want.done) and restarts >= min_restarts,
+           f"suite collect: dones on the card differ from the CPU's ({restarts} restarts)")
+    _check(bool(torch.isfinite(outs.reward).all()), "suite collect: non-finite rewards")
+    out = {"seconds": seconds, "restarts": restarts,
+           "steps_per_s": n_configs * replicas * n_steps / seconds}
+    if trace_dir is not None:
+        for name, randomize in (("keyed", True), ("fixed", False)):
+            counts = []
+            for k, steps in enumerate(profile_steps):
+                with trace(str(Path(trace_dir) / f"{name}{k}"), device) as prof:
+                    rollout(runner, steps, randomize)
+                counts.append(device_summary(prof)["kernels"])
+            out[f"events_per_step_{name}"] = (
+                (counts[1] - counts[0]) / (profile_steps[1] - profile_steps[0]))
+    return out
+
+
+def phase_tables_rbc(device, out_dir, scenario=0, n_steps=None):
+    """``run_benchmarks``' RBC mode (``RuleBasedControl.run_compiled``,
+    float64) for ``scenario`` through the tool's own entry; over the full
+    year scenario 0 costs ``RESULTS.md``'s 956,059.66 to the cent (the JAX
+    reference's bitwise figure).  The report it writes parses back to the
+    same cost."""
+    import re
+
+    from pymgrid_tpu_torch.tools import run_benchmarks
+
+    args = run_benchmarks.parse_args(["--device", str(device), "--scenarios", str(scenario),
+                                      "--out", str(out_dir)])
+    (row,), seconds = _timed(lambda: run_benchmarks.run_rbc(args, n_steps), device)
+    cost = f"{row[1]:,.2f}"
+    if scenario == 0 and n_steps is None:
+        _check(cost == f"{FULL_YEAR_COST:,.2f}",
+               f"tables/rbc: scenario 0 full-year cost {cost}, published {FULL_YEAR_COST:,.2f}")
+    table = (Path(out_dir) / "RESULTS.md").read_text()
+    _check(re.search(rf"^\| {scenario} \| {re.escape(cost)} \|", table, re.M) is not None,
+           f"tables/rbc: the report does not hold the cost {cost}")
+    return {"cost": row[1], "seconds": row[2], "wall_s": seconds}
+
+
+def phase_tables_mpc_suite(device, out_dir, scenarios=(0, 1), n_steps=24):
+    """``run_benchmarks --mpc-suite`` over ``scenarios`` (0 and 1: the
+    genset-free group and the genset group) at an ``n_steps`` cap: finite
+    costs, and the report parses back to them."""
+    import re
+
+    from pymgrid_tpu_torch.tools import run_benchmarks
+
+    args = run_benchmarks.parse_args(["--mpc-suite", "--device", str(device), "--scenarios",
+                                      ",".join(map(str, scenarios)), "--out", str(out_dir)])
+    (rows, report), seconds = _timed(lambda: run_benchmarks.run_mpc_suite(args, n_steps),
+                                     device)
+    _check([r[0] for r in rows] == list(scenarios)
+           and all(np.isfinite(r[1]) and r[2] == n_steps for r in rows),
+           f"tables/mpc_suite: rows {rows}")
+    table = report.read_text()
+    for n, cost, _, _ in rows:
+        _check(re.search(rf"^\| {n} \| {re.escape(f'{cost:,.2f}')} \|", table, re.M)
+               is not None, f"tables/mpc_suite: the report does not hold scenario {n}'s "
+                            f"cost {cost:,.2f}")
+    return {"costs": [r[1] for r in rows], "seconds": seconds,
+            "ms_per_hour": seconds / n_steps * 1e3}
+
+
+_COST_LINE = r"^  (.+): (-?[\d,]+\.\d\d)$"
+
+
+def phase_structure(device, n_steps=8758, rtol=1e-5):
+    """The scenario-0 structure study (``examples.scenario0_structure``) on
+    the card: at the full 8758 steps every printed return within ``rtol``
+    (float32) of ``docs/captures/scenario0_structure.log`` and every other
+    line identical (the tariff lines, ``handcrafted vs RBC: +5.24% cost``);
+    at a cut depth the same against the twin on the CPU."""
+    import re
+
+    from pymgrid_tpu_torch.examples.scenario0_structure import run
+
+    (lines, returns), seconds = _timed(lambda: run(device, n_steps), device)
+    if n_steps == 8758:
+        want = (REPO / "docs" / "captures" / "scenario0_structure.log").read_text().splitlines()
+    else:
+        want = run("cpu", n_steps)[0]
+    _check(len(lines) == len(want), f"structure: {len(lines)} lines, reference {len(want)}")
+    worst = 0.0
+    for got, ref in zip(lines, want):
+        g, r = re.match(_COST_LINE, got), re.match(_COST_LINE, ref)
+        if g and r and g.group(1) == r.group(1):
+            a, b = (float(m.group(2).replace(",", "")) for m in (g, r))
+            worst = max(worst, abs(a - b) / abs(b))
+            _check(abs(a - b) <= rtol * abs(b), f"structure: {got!r} vs {ref!r}")
+        else:
+            _check(got == ref, f"structure: {got!r} vs {ref!r}")
+    return {"lines": lines, "returns": returns, "seconds": seconds, "max_rel": worst}
+
+
 def phase_kernel_vs_plain(sweep, device, genset_batch=4096, genset_steps=8759):
     """The kernel against its plain PyTorch version, bitwise: at the
     main-path shape, on every pymgrid25 scenario (1024 x 64 steps) and on
@@ -953,8 +1154,8 @@ def main():
           f"replicas x 100 steps); rollout bitwise vs step loop {tag}", flush=True)
 
     # ---- on-device planners (no kernel of the port on their path) --------
-    sm = phase_suite_mpc(device)
-    print(f"planners/suite_mpc: 25 scenarios x 48 steps, H=24: float32 chip mode "
+    sm = phase_suite_mpc(device, n_steps=24)
+    print(f"planners/suite_mpc: 25 scenarios x 24 steps, H=24: float32 chip mode "
           f"{sm['seconds32']:.2f} s ({sm['ms_per_hour32']:.1f} ms per simulated hour), "
           f"float64 {sm['seconds64']:.2f} s ({sm['ms_per_hour64']:.1f} ms per hour); max rel "
           f"gap f32 vs f64 {sm['max_rel_gap']:.3e} (scenarios 0, 4, 1: "
@@ -964,10 +1165,11 @@ def main():
     print("planners/suite_mpc costs f64: " + json.dumps([round(c, 4) for c in sm["cost64"]]),
           flush=True)
     bm = phase_batched_mpc(device)
-    print(f"planners/batched_mpc: scenario 1, 24 steps: float32 x 1024 replicas (bitwise "
-          f"equal) {bm['seconds32']:.2f} s ({bm['ms_per_hour32']:.1f} ms per hour), cost "
-          f"{bm['cost32']:.4f}, rel {bm['rel32']:.3e} vs float64; float64 x 1 with host "
-          f"fallback {bm['seconds64']:.2f} s ({bm['ms_per_hour64']:.1f} ms per hour), cost "
+    print(f"planners/batched_mpc: scenario 1: float32 x 1024 replicas (bitwise equal), "
+          f"{bm['n_steps32']} steps, {bm['seconds32']:.2f} s ({bm['ms_per_hour32']:.1f} ms per "
+          f"hour), cost {bm['cost32']:.4f}, rel {bm['rel32']:.3e} vs float64 over the same "
+          f"steps; float64 x 1 with host fallback, {bm['n_steps']} steps, "
+          f"{bm['seconds64']:.2f} s ({bm['ms_per_hour64']:.1f} ms per hour), cost "
           f"{bm['cost64']:.4f}, rel {bm['rel_host']:.3e} vs host HiGHS {bm['host_cost']:.4f}; "
           f"fallback_count {bm['fallback_count']} {tag}", flush=True)
     saa = phase_saa(device)
@@ -998,6 +1200,35 @@ def main():
     dry = phase_dryrun(device)
     print(f"training/dryrun_multichip(1) over NCCL: loss {dry['loss']:.4f}, mean return "
           f"{dry['mean_return']:.4f}, in {dry['seconds']:.2f} s {tag}", flush=True)
+
+    # ---- JAX's draws: the random policy, key-drawn suite restarts --------
+    rp = phase_random_policy(device)
+    print(f"keys/random_policy: scenario 0, 65536 replicas: one draw and step in "
+          f"{rp['seconds']:.4f} s; {rp['n_actions']} actions bitwise vs the CPU {tag}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix=".collect-trace-", dir=REPO) as trace_dir:
+        sc = phase_suite_collect(device, trace_dir=trace_dir)
+    print(f"keys/suite_collect: 25 x 1024 x 20 steps with randomized restarts in "
+          f"{sc['seconds']:.4f} s ({sc['steps_per_s']:.6g} env-steps/s), dones bitwise vs "
+          f"the CPU ({sc['restarts']} restarts); {sc['events_per_step_keyed']:.1f} device "
+          f"events per step, {sc['events_per_step_fixed']:.1f} with fixed restarts and no "
+          f"keys {tag}", flush=True)
+
+    # ---- the result-table tools and the structure study -----------------
+    with tempfile.TemporaryDirectory(prefix=".tables-", dir=REPO) as out_dir:
+        tr = phase_tables_rbc(device, out_dir)
+        tm = phase_tables_mpc_suite(device, out_dir)
+    print(f"tables/rbc: scenario 0, full year (f64), cost {tr['cost']:,.2f} = RESULTS.md "
+          f"to the cent, in {tr['seconds']:.2f} s {tag}", flush=True)
+    print(f"tables/mpc_suite: scenarios 0 and 1 (two groups), 24 steps, costs "
+          f"{json.dumps([round(c, 4) for c in tm['costs']])}, report parsed back, in "
+          f"{tm['seconds']:.2f} s ({tm['ms_per_hour']:.1f} ms per hour) {tag}", flush=True)
+    st = phase_structure(device)
+    for line in st["lines"]:
+        print(f"examples/scenario0_structure | {line}", flush=True)
+    print(f"examples/scenario0_structure: 8758 steps, every return within "
+          f"{st['max_rel']:.3e} of docs/captures/scenario0_structure.log, other lines "
+          f"identical, in {st['seconds']:.2f} s {tag}", flush=True)
 
     # ---- kernel against its plain version (launches not counted) ---------
     kvp = phase_kernel_vs_plain(sweep, device)

@@ -34,8 +34,7 @@ import torch
 from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
 from pymgrid_tpu_torch.algos.mpc import ModelPredictiveControl
 from pymgrid_tpu_torch.core.spec import extract_spec
-from pymgrid_tpu_torch.core import prng
-from pymgrid_tpu_torch.core.engine import _gather_window, make_reset_fn, make_step_fn
+from pymgrid_tpu_torch.core.engine import _gather_window, make_reset_fn, make_step_fn, reset_keys
 from pymgrid_tpu_torch.core.lp import make_batched_box_ipm_solver, make_batched_ipm_solver
 from pymgrid_tpu_torch.core.params import (
     params_to_torch,
@@ -568,7 +567,7 @@ class BatchedMPC:
 
     def _reset(self, seed):
         starts = self.params["initial_step"].to(torch.int32).view(1, 1)
-        keys = prng.split(prng.key(seed, self.device), self.batch_size).unsqueeze(0)
+        keys = reset_keys(self.spec, seed, self.device, (1, self.batch_size))
         return self._reset_fn(self.params, starts.expand(1, self.batch_size), keys)
 
     # ------------------------------------------------------------------ api

@@ -21,8 +21,7 @@ import torch
 
 from pymgrid_tpu_torch._device import numpy_dtype
 from pymgrid_tpu_torch.algos.mpc_batched import ProblemTemplate, run_chunked, series_window
-from pymgrid_tpu_torch.core import prng
-from pymgrid_tpu_torch.core.engine import make_reset_fn, make_step_fn
+from pymgrid_tpu_torch.core.engine import make_reset_fn, make_step_fn, reset_keys
 from pymgrid_tpu_torch.core.lp import make_batched_box_ipm_solver, make_batched_ipm_solver
 from pymgrid_tpu_torch.core.params import tree_map
 from pymgrid_tpu_torch.modules import GensetModule
@@ -158,7 +157,7 @@ class SuiteMPC:
 
     def _reset(self, seed):
         starts = self.params["initial_step"].to(torch.int32).unsqueeze(1)
-        keys = prng.split(prng.key(seed, starts.device), starts.shape[0]).unsqueeze(1)
+        keys = reset_keys(self.spec, seed, starts.device, (starts.shape[0], 1))
         return self._reset_fn(self.params, starts, keys)
 
     # ------------------------------------------------------------------ api

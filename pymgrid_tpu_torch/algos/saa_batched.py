@@ -20,8 +20,13 @@ import numpy as np
 import torch
 
 from pymgrid_tpu_torch.algos.mpc_batched import ProblemTemplate, run_chunked
-from pymgrid_tpu_torch.core import prng
-from pymgrid_tpu_torch.core.engine import _gather_window, gather_rows, make_reset_fn, make_step_fn
+from pymgrid_tpu_torch.core.engine import (
+    _gather_window,
+    gather_rows,
+    make_reset_fn,
+    make_step_fn,
+    reset_keys,
+)
 from pymgrid_tpu_torch.core.params import without_config_axis, with_config_axis
 
 __all__ = ["BatchedSAA"]
@@ -138,7 +143,7 @@ class BatchedSAA:
 
     def _reset(self, seed):
         starts = self.params["initial_step"].to(torch.int32).view(1, 1)
-        return self._reset_fn(self.params, starts, prng.key(seed, starts.device).view(1, 1, 2))
+        return self._reset_fn(self.params, starts, reset_keys(self.spec, seed, starts.device))
 
     def _n_steps(self, n_steps):
         max_steps = self.sample_length - self.horizon

@@ -10,13 +10,13 @@ import numpy as np
 import torch
 
 from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
-from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core.engine import (
     _forecasts_at,
     check_supported,
     make_reset_fn,
     make_step_fn,
     needs_keys,
+    reset_keys,
 )
 from pymgrid_tpu_torch.core.params import params_to_torch, with_config_axis
 from pymgrid_tpu_torch.core.spec import extract_spec
@@ -56,8 +56,9 @@ class CompiledMicrogrid:
     def reset(self, seed=None):
         """The state at the config's initial step; ``seed`` (default: the
         constructor's) keys the gaussian forecasts, as
-        ``jax.random.PRNGKey(seed)`` keys them in the JAX engine."""
-        key = prng.key(self._seed if seed is None else seed, self.device).view(1, 1, 2)
+        ``jax.random.PRNGKey(seed)`` keys them in the JAX engine.  A spec
+        without threefry gaussians gets the keyless state."""
+        key = reset_keys(self.spec, self._seed if seed is None else seed, self.device)
         return self._reset_fn(self.params, self.params["initial_step"].view(1, 1), key)
 
     def initial_state(self, seed=None):

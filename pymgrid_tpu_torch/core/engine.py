@@ -22,13 +22,16 @@ Eager PyTorch removes no dead code, so the step builds the observation and the
 log row only when asked (``with_obs`` / ``with_log``); rewards-only loops skip
 both.  Out-of-range step indices clamp, as ``lax.dynamic_slice`` does.
 
-Gaussian forecasters without the numpy noise bank draw from per-replica
-threefry keys (:mod:`pymgrid_tpu_torch.core.prng`), the same draws as the JAX
-engine's ``jax.random`` for the same key: the state then carries ``rng``
-``(C, B, 2)`` and the realized windows in ``forecast``, and the step redraws
-them at ``t + 1`` (:func:`needs_keys`; every other spec keeps the keyless
-layout).  User callables (forecasters, battery transition models, genset
-costs) run per replica under ``torch.func.vmap`` over the flattened
+A state reset with per-replica threefry keys
+(:mod:`pymgrid_tpu_torch.core.prng`) carries them as ``rng`` ``(C, B, 2)``,
+and each step splits them as the JAX engine does (the new ``rng`` is
+``split(rng)[0]``), so key-drawn randomness (the random policy, the suite's
+randomized restarts) follows the JAX engine's keys.  Gaussian forecasters
+without the numpy noise bank draw from them the same noise as the JAX
+engine's ``jax.random``: such a spec needs keys (:func:`needs_keys`), and its
+state also carries the realized windows in ``forecast``, redrawn at
+``t + 1``.  A keyless reset keeps the keyless layout.  User callables
+(forecasters, battery transition models, genset costs) run per replica under ``torch.func.vmap`` over the flattened
 ``(C*B)`` axis, so they see the per-replica values and shapes they see in
 the JAX engine.
 """
@@ -58,6 +61,7 @@ __all__ = [
     "slot_param",
     "check_supported",
     "needs_keys",
+    "reset_keys",
     "realized_forecast",
 ]
 
@@ -91,6 +95,20 @@ def needs_keys(spec):
     return not spec.numpy_noise and any(
         ref.forecaster == "gaussian" for ref in spec.log_order
     )
+
+
+def reset_keys(spec, seed, device, shape=None):
+    """The keys a reset of ``spec`` takes from ``seed``: ``key(seed)`` as
+    ``(1, 1, 2)``, or with ``shape = (C, B)`` ``split(key(seed), C*B)`` as
+    ``(C, B, 2)``; ``None`` for a spec that draws no threefry gaussians, so
+    its state stays keyless."""
+    if not needs_keys(spec):
+        return None
+    key = prng.key(seed, device)
+    if shape is None:
+        return key.view(1, 1, 2)
+    C, B = shape
+    return prng.split(key, C * B).view(C, B, 2)
 
 
 class _NumpyBoolArithmetic(TorchFunctionMode):
@@ -344,9 +362,9 @@ def make_reset_fn(spec):
     caller's randomized starts, or ``params["initial_step"]`` broadcast);
     it also fixes the replica count ``B``.  State leaves are ``(C, B, ...)``;
     step and genset counters are int32.  ``key`` is the replicas' threefry
-    keys ``(C, B, 2)``: a spec that :func:`needs_keys` requires them and
-    its state carries them as ``rng`` with the windows drawn from them in
-    ``forecast``; other specs ignore it.  Shared ``(C, 1)`` starts (the
+    keys ``(C, B, 2)``: given, the state carries them as ``rng`` (the step
+    splits them); a spec that :func:`needs_keys` requires them and draws its
+    windows from them into ``forecast``.  Shared ``(C, 1)`` starts (the
     lockstep layout) take per-replica keys too: then ``rng`` and
     ``forecast`` are per replica and the other leaves shared.
     """
@@ -378,13 +396,16 @@ def make_reset_fn(spec):
             },
             "forecast": {},
         }
-        if keyed:
-            if (key is None or key.dim() != 3 or key.shape[0] != C
-                    or key.shape[2] != 2 or B not in (1, key.shape[1])):
-                got = None if key is None else tuple(key.shape)
+        if key is None:
+            if keyed:
                 raise ValueError(f"this spec draws gaussian forecasts: reset needs "
-                                 f"keys of shape {(C, B, 2)}, got {got}")
-            state["rng"] = key
+                                 f"keys of shape {(C, B, 2)}, got None")
+            return state
+        if (key.dim() != 3 or key.shape[0] != C or key.shape[2] != 2
+                or B not in (1, key.shape[1])):
+            raise ValueError(f"reset needs keys of shape {(C, B, 2)}, got {tuple(key.shape)}")
+        state["rng"] = key
+        if keyed:
             state["forecast"] = _forecasts_at(spec, params, t0, key)
         return state
 
@@ -681,10 +702,11 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True,
             "genset": {k: _stack_slots(v, gs[k]) for k, v in new_gs.items()},
             "forecast": {},
         }
-        if keyed:
+        if "rng" in state:
             pair = prng.split(state["rng"])
             new_state["rng"] = pair[..., 0, :]
-            new_state["forecast"] = _forecasts_at(spec, params, new_t, pair[..., 1, :])
+            if keyed:
+                new_state["forecast"] = _forecasts_at(spec, params, new_t, pair[..., 1, :])
 
         obs = None
         if with_obs:

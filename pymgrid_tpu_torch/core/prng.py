@@ -1,8 +1,10 @@
 """Threefry-2x32 random numbers that equal ``jax.random``'s.
 
-The part of ``jax.random`` the engine uses (``PRNGKey``, ``split``, the raw
-``bits`` and ``normal``) in plain tensor ops, so the port draws the same
-gaussian forecast noise as the JAX engine for the same seed, on any device.
+The part of ``jax.random`` the engine uses (``PRNGKey``, ``split``,
+``fold_in``, the raw ``bits``, ``uniform``, ``randint`` and ``normal``) in
+plain tensor ops, so the port draws the same gaussian forecast noise,
+random-policy actions and randomized suite starts as the JAX package for the
+same seed, on any device.
 
 A key is an int64 tensor ``(..., 2)`` holding two uint32 words, as
 ``jax.random.PRNGKey`` returns them (the raw, non-typed key).  Every function
@@ -15,19 +17,22 @@ split into its high and low words.
 Threefry needs only 32-bit add, rotate and xor.  Here the words live in int64
 and are masked to 32 bits after every add and left shift; right shifts only
 see non-negative values, so the arithmetic ``>>`` of int64 is the logical
-one.  ``normal`` builds uniforms in ``[nextafter(-1, 0), 1)`` from the top
-mantissa bits as JAX does and maps them through the erfinv polynomials XLA
-uses (M. Giles, "Approximating the erfinv function", GPU Computing Gems
-Jade, 2011).  Keys and bits are bitwise equal to ``jax.random``; normals
-differ only where ``log1p`` or the last rounding of the polynomial does
-(tests/test_torch_prng.py states the measured gap).
+one; ``randint``'s uint32 products and sums are masked the same way, so
+they wrap as JAX's do.  ``normal`` builds uniforms in ``[nextafter(-1, 0),
+1)`` from the top mantissa bits as JAX does and maps them through the erfinv
+polynomials XLA uses (M. Giles, "Approximating the erfinv function", GPU
+Computing Gems Jade, 2011).  Keys, bits, uniforms and integers are bitwise
+equal to ``jax.random``; normals differ only where ``log1p`` or the last
+rounding of the polynomial does (tests/test_torch_prng.py states the
+measured gap).
 """
 import math
 
 import numpy as np
 import torch
 
-__all__ = ["key", "split", "bits", "uniform", "normal", "erfinv", "threefry2x32"]
+__all__ = ["key", "split", "fold_in", "bits", "uniform", "randint", "normal", "erfinv",
+           "threefry2x32"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -84,6 +89,15 @@ def split(key, num=2):
     return torch.stack([b1, b2], dim=-1)
 
 
+def fold_in(key, data):
+    """``jax.random.fold_in``: the hash of the counter words ``(0, data)``
+    under each key of ``key (..., 2)`` (``threefry_seed`` of a 32-bit
+    ``data``), as the new key ``(..., 2)``.  ``data`` is taken mod 2**32,
+    as JAX's conversion to uint32 takes it."""
+    x1, x2 = threefry2x32(key[..., 0], key[..., 1], 0, int(data) & _MASK)
+    return torch.stack([x1, x2], dim=-1)
+
+
 def bits(key, shape, width=32):
     """``jax.random.bits`` of ``width`` 32 (uint32 values in int64) or 64
     (the uint64 bit pattern as int64, two's complement) for every key of
@@ -114,6 +128,50 @@ def uniform(key, shape, dtype, minval=0.0, maxval=1.0):
     hi = torch.as_tensor(np.asarray(maxval, dtype=_np(dtype)), device=key.device)
     floats = floats - torch.ones((), dtype=dtype, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def _mulmod(a, b, m):
+    """``(a * b) % m`` exactly for int64 tensors ``0 <= a, b < m < 2**32``
+    (``b`` in 16-bit halves, so no product reaches 2**63)."""
+    return (torch.remainder(a * (b >> 16), m) * 65536 + a * (b & 0xFFFF)) % m
+
+
+def randint(key, shape, minval, maxval, dtype=torch.int32):
+    """``jax.random.randint``: ``key.shape[:-1] + shape`` integers in
+    ``[minval, maxval)`` (``minval`` where ``maxval <= minval``), the bounds
+    numbers or int tensors in the int32 range that broadcast against that
+    shape.
+
+    ``dtype`` is JAX's: ``torch.int32``, or ``torch.int64``, which is what
+    JAX's default ``int`` means under ``jax_enable_x64``.  Each value takes
+    two draws of the dtype's width, folded by JAX's modular span.  In int32
+    every uint32 product and sum wraps mod 2**32 as JAX's does (masked after
+    each ``*`` and ``+``; the products stay below 2**62 in int64).  In int64
+    the uint64 arithmetic cannot wrap for these spans (below 2**32), and is
+    computed exactly from 32-bit words."""
+    shape = tuple(shape)
+    as_bound = lambda v: torch.as_tensor(v, dtype=torch.int64, device=key.device)  # noqa: E731
+    lo, hi = as_bound(minval), as_bound(maxval)
+    span = torch.broadcast_to(torch.where(hi <= lo, torch.ones_like(hi), hi - lo),
+                              key.shape[:-1] + shape)
+    pair = split(key)
+    width = {torch.int32: 32, torch.int64: 64}[dtype]
+    higher = bits(pair[..., 0, :], shape, width)
+    lower = bits(pair[..., 1, :], shape, width)
+    if width == 64:
+        high_word = (2**32) % span
+
+        def rem(x):  # a uint64 bit pattern (int64) mod span
+            words = ((x >> 32) & _MASK) % span, (x & _MASK) % span
+            return (_mulmod(words[0], high_word, span) + words[1]) % span
+
+        multiplier = _mulmod(high_word, high_word, span)
+        return lo + (_mulmod(rem(higher), multiplier, span) + rem(lower)) % span
+    multiplier = ((2**16 % span) ** 2 & _MASK) % span   # 0 for a span above 2**16
+    offset = (((higher % span) * multiplier & _MASK) + lower % span & _MASK) % span
+    value = (lo + offset) & _MASK                        # int32 addition wraps
+    return torch.where(value > torch.iinfo(torch.int32).max, value - 2**32,
+                       value).to(torch.int32)
 
 
 def normal(key, shape, dtype):

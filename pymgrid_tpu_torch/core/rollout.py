@@ -11,6 +11,7 @@ folding).
 import numpy as np
 import torch
 
+from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core.tables import row_table_layout
 from pymgrid_tpu_torch._device import resolve_device, torch_dtype
 from pymgrid_tpu_torch.core.engine import (
@@ -457,26 +458,23 @@ def make_table_policy(spec, priority_lists, device="cuda"):
     return policy
 
 
-def make_random_policy(spec, generator):
+def make_random_policy(spec, normalized=True):
     """Uniform random actions in [0, 1] (for a ``normalized=True`` step),
-    drawn from ``generator``, which must live on the state's device.  The
-    JAX policy draws from ``fold_in(state["rng"], 7)``, so the two agree in
-    shape and range, not in values (:mod:`pymgrid_tpu_torch.core.prng`
-    reproduces threefry; this policy does not use it yet)."""
+    the JAX policy's draws: per replica ``fold_in(state["rng"], 7)`` split in
+    three, each a ``uniform`` of shape ``(n_battery,)``, ``(n_genset, 2)`` and
+    ``(n_grid,)``.  The state must carry keys (a reset given keys); like the
+    JAX policy it takes ``normalized`` and ignores it."""
     dtype = torch_dtype(spec.dtype)
 
     def policy(params, state):
-        batch = _batch_of(state)
-        device = state["step"].device
-
-        def draw(*tail):
-            return torch.rand(batch + tail, generator=generator, dtype=dtype,
-                              device=device)
-
+        if "rng" not in state:
+            raise ValueError("the random policy draws from the state's keys: reset "
+                             "with keys (make_reset_fn(spec)(params, starts, keys))")
+        kb, kg, kr = prng.split(prng.fold_in(state["rng"], 7), 3).unbind(-2)
         return {
-            "battery": draw(spec.n_battery),
-            "genset": draw(spec.n_genset, 2),
-            "grid": draw(spec.n_grid),
+            "battery": prng.uniform(kb, (spec.n_battery,), dtype),
+            "genset": prng.uniform(kg, (spec.n_genset, 2), dtype),
+            "grid": prng.uniform(kr, (spec.n_grid,), dtype),
         }
 
     return policy

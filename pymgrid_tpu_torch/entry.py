@@ -128,7 +128,7 @@ def dryrun_multichip(n_devices, device="cuda"):
         fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), n_steps,
                                auto_reset=True, collect=False, randomize_initial_step=True)
         acc = dist.fetch(fn(runner.params,
-                            runner.draw_initial_steps(torch.Generator().manual_seed(0))))
+                            runner.draw_initial_steps(runner.make_keys(0))))
         if not np.isfinite(acc).all():
             raise RuntimeError("meshed suite rollout: non-finite output")
     finally:

@@ -14,13 +14,12 @@ and :func:`~pymgrid_tpu_torch.parallel.distributed.fetch` assembles outputs.
 import torch
 
 from pymgrid_tpu_torch._device import numpy_dtype, torch_dtype
-from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core.engine import (
     StepOutput,
     check_supported,
     make_reset_fn,
     make_step_fn,
-    needs_keys,
+    reset_keys,
 )
 from pymgrid_tpu_torch.core.params import (
     params_to_torch,
@@ -53,9 +52,8 @@ def replica_keys(spec, seed, global_size, rows, device):
     """This rank's ``rows`` of ``split(key(seed), global_size)`` as
     ``(1, B, 2)`` engine keys (the JAX batched reset's keys), or ``None``
     for a spec that draws no threefry gaussians."""
-    if not needs_keys(spec):
-        return None
-    return prng.split(prng.key(seed, device), global_size)[rows].unsqueeze(0)
+    keys = reset_keys(spec, seed, device, (1, global_size))
+    return None if keys is None else keys[:, rows]
 
 
 def drop_config_axis(out):

@@ -6,16 +6,18 @@ the JAX package: neutral modules for absent kinds contribute exactly +/-0.0),
 so all configs share one :class:`~pymgrid_tpu_torch.core.spec.MicrogridSpec`;
 params stack along a leading config axis and the engine steps ``(C, B)`` = configs x replicas at once.
 
-Episode starts are an explicit ``(C, B)`` input: the JAX runner draws them
-from its replicas' ``jax.random`` keys, the port takes them from the caller
-(:meth:`SuiteRunner.draw_initial_steps` draws them from a seeded
-``torch.Generator``, so they differ from the JAX runner's for the same
-seed).  Threefry-gaussian forecasts do draw from per-replica keys,
-``split(key(seed), C*B)`` as the JAX runner's ``make_keys`` gives them
-(:meth:`SuiteRunner.make_keys`), and auto-resets re-key from each replica's
-own ``rng``.  Only the per-step path is ported; the JAX
-runner's block-prefetch mode is a TPU gather optimisation left for later
-(ROADMAP.md A15).  Collected outputs come back as ``(C, B, T, ...)``.
+Episode starts are an explicit ``(C, B)`` input.  Randomized starts are the
+JAX runner's: :meth:`SuiteRunner.draw_initial_steps` draws each replica's
+``randint(fold_in(key, 0x51A7), (), initial_step, max_start)`` from the keys
+``split(key(seed), C*B)`` that :meth:`SuiteRunner.make_keys` gives, as the
+JAX runner's ``make_keys`` does, so the port starts where JAX starts for the
+same seed (the draw under ``jax_enable_x64``, as the JAX package's tests
+and float64 tools run it).  Rollouts that draw (threefry-gaussian
+forecasts, collect-mode randomized restarts) carry the keys as the state's
+``rng``, which every step splits as the JAX engine does, and a restart
+draws from the replica's own split key.  Only the per-step path is ported;
+the JAX runner's block-prefetch mode is a TPU gather optimisation left for
+later (ROADMAP.md A15).  Collected outputs come back as ``(C, B, T, ...)``.
 """
 import numpy as np
 import torch
@@ -179,18 +181,24 @@ class SuiteRunner:
         # replicas start in [initial_step, max_start)
         self.max_start = (min(ts_lengths) if ts_lengths else 1) - 1
 
-    def draw_initial_steps(self, generator):
-        """``(C, B)`` int32 starts, uniform in ``[initial_step, max_start)``
-        per config, drawn on the CPU from ``generator`` and moved to the
-        runner's device (so every device gets the same starts).  ``C`` is
-        every config, also with a mesh."""
-        lows = self._initial_step.cpu().tolist()
-        draws = [
-            torch.randint(int(lo), self.max_start, (self.batch_per_config,),
-                          generator=generator, dtype=torch.int64)
-            for lo in lows
-        ]
-        return torch.stack(draws).to(torch.int32).to(self.device)
+    def _draw(self, initial_step, keys):
+        """``randint(fold_in(key, 0x51A7), (), initial_step, max_start)`` per
+        key of ``keys (C, B, 2)``, ``initial_step (C,)``: int32 ``(C, B)``.
+        The draw is JAX's default-``int`` one under ``jax_enable_x64``
+        (int64: two 64-bit draws per value), which the JAX package's tests
+        and float64 tools run with."""
+        low = initial_step.to(torch.int64).unsqueeze(1)
+        starts = prng.randint(prng.fold_in(keys, 0x51A7), (), low, self.max_start,
+                              torch.int64)
+        return starts.to(torch.int32)
+
+    def draw_initial_steps(self, keys):
+        """``(C, B)`` int32 randomized starts drawn from every config's keys
+        ``(C, B, 2)`` (:meth:`make_keys`), uniform in ``[initial_step,
+        max_start)`` per config, as the JAX runner draws them; on the
+        runner's device.  ``C`` is every config, also with a mesh: each rank
+        draws the same starts, whatever the world size."""
+        return self._draw(self._initial_step, keys.to(self.device))
 
     def make_keys(self, seed=0):
         """``(C, B, 2)`` threefry keys, ``split(key(seed), C*B)`` as the JAX
@@ -206,10 +214,13 @@ class SuiteRunner:
 
     def rollout_fn(self, policy, n_steps, auto_reset=True, collect=False,
                    randomize_initial_step=False):
-        """``(params, initial_steps, generator=None, keys=None) -> outputs``.
+        """``(params, initial_steps, keys=None) -> outputs``.
 
-        ``keys`` (every config's, :meth:`make_keys`) key threefry-gaussian
-        forecasts; a spec that draws them defaults to ``make_keys(0)``.
+        ``keys`` (every config's, :meth:`make_keys`) key the rollouts that
+        draw: threefry-gaussian forecasts and the collect mode's randomized
+        restarts, which raise without them; pass the keys the starts were
+        drawn from (``draw_initial_steps(keys)``), as the JAX runner draws
+        both from one set.  Other rollouts ignore them.
 
         With ``collect=False`` (throughput mode) returns the ``(C, B)``
         reward + obs checksum per env; with ``collect=True`` returns
@@ -218,30 +229,28 @@ class SuiteRunner:
         ``randomize_initial_step`` sets the auto-reset target: without
         ``collect`` a finished replica continues at the sequential wrap
         ``i0 + (t + 1 - i0) mod (max_start - i0)`` (the JAX runner's
-        throughput mode); with ``collect`` it restarts at a fresh uniform
-        start drawn from ``generator``.  Otherwise it restarts at
+        throughput mode); with ``collect`` it restarts where the JAX runner
+        restarts it, at a start drawn from its split key ``new_state["rng"]``
+        (drawn every step, kept where ``done``).  Otherwise it restarts at
         ``params["initial_step"]``.
         """
         spec = self.spec
         step_fn = make_step_fn(spec, with_obs=True, with_log=collect)
         reset_fn = make_reset_fn(spec)
         seq_mode = randomize_initial_step and auto_reset and not collect
+        redraw = randomize_initial_step and auto_reset and collect
+        keyed = needs_keys(spec) or redraw
         max_start = self.max_start
 
-        def reset_target(params, new_state, generator):
+        def reset_target(params, new_state):
             i0 = params["initial_step"].to(torch.int32).unsqueeze(1)
             if seq_mode:
                 return i0 + torch.remainder(new_state["step"] - i0, max_start - i0)
-            if randomize_initial_step:
-                if generator is None:
-                    raise ValueError("randomized auto-resets with collect=True "
-                                     "need a torch.Generator")
-                return self.draw_initial_steps(generator)[self._configs]
+            if redraw:
+                return self._draw(params["initial_step"], new_state["rng"])
             return i0.expand(new_state["step"].shape)
 
-        keyed = needs_keys(spec)
-
-        def suite_rollout(params, initial_steps, generator=None, keys=None):
+        def suite_rollout(params, initial_steps, keys=None):
             if tuple(initial_steps.shape) != (self.n_configs, self.batch_per_config):
                 raise ValueError(
                     f"initial_steps must be (n_configs, batch_per_config) = "
@@ -250,8 +259,14 @@ class SuiteRunner:
                 )
             initial_steps = initial_steps[self._configs]
             if keyed:
-                keys = (self.make_keys(0) if keys is None else keys)[self._configs]
-                keys = keys.to(initial_steps.device)
+                if keys is None:
+                    raise ValueError(
+                        "this rollout draws (threefry-gaussian forecasts or randomized "
+                        "restarts): pass the keys the starts were drawn from, "
+                        "make_keys(seed)")
+                keys = keys[self._configs].to(initial_steps.device)
+            else:
+                keys = None
             states = reset_fn(params, initial_steps, keys)
             acc = torch.zeros(initial_steps.shape, dtype=self.dtype,
                               device=initial_steps.device)
@@ -260,7 +275,7 @@ class SuiteRunner:
                 action = policy(params, states)
                 new_states, out = step_fn(params, states, action)
                 if auto_reset:
-                    fresh = reset_fn(params, reset_target(params, new_states, generator),
+                    fresh = reset_fn(params, reset_target(params, new_states),
                                      new_states.get("rng"))
                     new_states = select_state(out.done, fresh, new_states)
                 states = new_states

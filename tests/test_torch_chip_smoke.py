@@ -79,8 +79,9 @@ def test_suite_mpc_phase_cpu():
 
 def test_batched_mpc_phase_cpu():
     """4 float32 replicas and the float64 host-fallback run, 2 steps."""
-    out = chip_smoke.phase_batched_mpc("cpu", batch=4, n_steps=2)
+    out = chip_smoke.phase_batched_mpc("cpu", batch=4, n_steps=3, n_steps32=2)
     assert out["rel_host"] < 1e-4 and out["fallback_count"] == 0
+    assert out["n_steps"] == 3 and out["n_steps32"] == 2 and out["rel32"] < 0.02
 
 
 def test_saa_phase_cpu():
@@ -107,6 +108,35 @@ def test_es_phase_cpu():
 def test_dryrun_phase_cpu():
     out = chip_smoke.phase_dryrun("cpu")
     assert out["devices"] == 1 and out["seconds"] > 0
+
+
+def test_random_policy_phase_cpu():
+    out = chip_smoke.phase_random_policy("cpu", batch=64)
+    assert out["n_actions"] == 64 * 2 and out["seconds"] > 0
+
+
+def test_suite_collect_phase_cpu(tmp_path):
+    """2 configs x 8 replicas x 4 steps, and the profiled rollouts (a CPU
+    capture records no device events)."""
+    out = chip_smoke.phase_suite_collect("cpu", n_configs=2, replicas=8, n_steps=4,
+                                         trace_dir=tmp_path, profile_steps=(1, 2),
+                                         min_restarts=0)
+    assert out["steps_per_s"] > 0
+    assert out["events_per_step_keyed"] == 0 and out["events_per_step_fixed"] == 0
+
+
+def test_tables_phases_cpu(tmp_path):
+    rbc = chip_smoke.phase_tables_rbc("cpu", tmp_path, n_steps=30)
+    assert rbc["cost"] > 0 and (tmp_path / "RESULTS.md").exists()
+    mpc = chip_smoke.phase_tables_mpc_suite("cpu", tmp_path, n_steps=2)
+    assert len(mpc["costs"]) == 2 and mpc["ms_per_hour"] > 0
+
+
+def test_structure_phase_cpu():
+    """At a cut depth the study on the device is held against the CPU twin
+    (here both run on the CPU)."""
+    out = chip_smoke.phase_structure("cpu", n_steps=30)
+    assert out["max_rel"] == 0.0 and len(out["lines"]) == 13
 
 
 def test_main_refuses_without_cuda(monkeypatch):

@@ -117,15 +117,14 @@ def test_meshed_batched_microgrid_and_suite_split_rows_bitwise():
     mgs = lambda: [Microgrid.from_scenario(n) for n in (0, 1, 2, 3)]  # noqa: E731
     full = SuiteRunner(mgs(), 3, "float64", device="cpu")
     shards = [SuiteRunner(mgs(), 3, "float64", mesh=m) for m in _ranks()]
-    starts = full.draw_initial_steps(torch.Generator().manual_seed(0))
-    assert all(torch.equal(s.draw_initial_steps(torch.Generator().manual_seed(0)), starts)
-               for s in shards)
+    keys = full.make_keys(0)
+    starts = full.draw_initial_steps(keys)
+    assert all(torch.equal(s.draw_initial_steps(s.make_keys(0)), starts) for s in shards)
     for collect in (False, True):
         kw = dict(auto_reset=True, collect=collect, randomize_initial_step=True)
         policy = make_marginal_cost_policy(full.spec)
-        want = full.rollout_fn(policy, 12, **kw)(full.params, starts,
-                                                 torch.Generator().manual_seed(1))
-        got = [s.rollout_fn(policy, 12, **kw)(s.params, starts, torch.Generator().manual_seed(1))
+        want = full.rollout_fn(policy, 12, **kw)(full.params, starts, keys)
+        got = [s.rollout_fn(policy, 12, **kw)(s.params, starts, s.make_keys(0))
                for s in shards]
         if collect:
             assert torch.equal(torch.cat([g[1].reward for g in got]), want[1].reward)

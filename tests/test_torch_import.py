@@ -36,7 +36,11 @@ for name in ("pymgrid_tpu_torch.parallel.batch", "pymgrid_tpu_torch.parallel.bat
              "pymgrid_tpu_torch.legacy_envs.csca_old", "pymgrid_tpu_torch.legacy_envs.csda",
              "pymgrid_tpu_torch.legacy_envs.cspla", "pymgrid_tpu_torch.legacy_envs.environment",
              "pymgrid_tpu_torch.legacy_envs.preprocessing", "pymgrid_tpu_torch.envs.gym_adapter",
-             "pymgrid_tpu_torch.utils.ray", "pymgrid_tpu_torch.version"):
+             "pymgrid_tpu_torch.utils.ray", "pymgrid_tpu_torch.version",
+             "pymgrid_tpu_torch.examples.scenario0_structure", "pymgrid_tpu_torch.tools",
+             "pymgrid_tpu_torch.tools.run_benchmarks",
+             "pymgrid_tpu_torch.tools.run_legacy_benchmarks",
+             "pymgrid_tpu_torch.tools.saa_report"):
     assert name in names, name
 
 from pymgrid_tpu_torch import Microgrid
@@ -85,9 +89,13 @@ def test_port_imports_and_steps_without_jax():
 
 def test_no_file_of_the_port_imports_jax():
     """No line of the port or of chip_smoke.py, at any indentation, imports
-    jax, optax, orbax or the JAX package."""
-    pattern = re.compile(r"^\s*(import|from)\s+((jax|optax|orbax)\b|pymgrid_tpu(\.|\s|$))",
-                         re.M)
+    jax, optax, orbax, the JAX package or the repository's ``tools`` and
+    ``examples`` programs."""
+    pattern = re.compile(r"^\s*(import|from)\s+((jax|optax|orbax|tools|examples)\b"
+                         r"|pymgrid_tpu(\.|\s|$))", re.M)
+    assert pattern.search("    from tools.saa_report import write_report")
+    assert pattern.search("import examples.train_rl")
+    assert not pattern.search("from pymgrid_tpu_torch.tools import run_benchmarks")
     assert pattern.search("    from pymgrid_tpu.core import physics")
     assert pattern.search("import pymgrid_tpu")
     assert not pattern.search("from pymgrid_tpu_torch.core import physics")

@@ -93,3 +93,63 @@ def test_erfinv_matches_xla_polynomials():
         np.testing.assert_allclose(got, want, rtol=0, atol=atol)
         edge = torch.tensor([-1.0, 1.0], dtype=torch.from_numpy(x).dtype)
         assert torch.equal(prng.erfinv(edge), torch.erfinv(edge))
+
+
+FOLD_DATA = [0, 1, 7, 0x51A7, 2**31 - 1, 2**31, 2**32 - 1]
+
+
+@pytest.mark.parametrize("data", FOLD_DATA)
+def test_fold_in_bitwise(data):
+    """``fold_in`` over a single key, 64 split keys and a ``(2, 3)`` batch of
+    keys, for ``data`` up to 2**32 - 1."""
+    np.testing.assert_array_equal(
+        prng.fold_in(prng.key(42), data).numpy(),
+        np.asarray(jax.random.fold_in(_jkey(42), np.uint32(data))).astype(np.int64))
+    keys, jkeys = prng.split(prng.key(5), 64), jax.random.split(_jkey(5), 64)
+    want = jax.vmap(lambda k: jax.random.fold_in(k, np.uint32(data)))(jkeys)
+    np.testing.assert_array_equal(prng.fold_in(keys, data).numpy(),
+                                  np.asarray(want).astype(np.int64))
+    np.testing.assert_array_equal(prng.fold_in(keys[:6].view(2, 3, 2), data).numpy(),
+                                  np.asarray(want[:6]).reshape(2, 3, 2).astype(np.int64))
+
+
+# spans of 1, 2, 8, 8759 (a year of starts) and above 2**16, where int32's
+# uint32 multiplier wraps to 0; the full int32 range; maxval <= minval
+SPANS = [(0, 1), (0, 2), (0, 8), (0, 8759), (3, 65539), (0, 65537), (5, 200_000),
+         (-100, 2**31 - 1), (-2**31, 2**31 - 1), (10, 10), (10, 3)]
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+@pytest.mark.parametrize("minval,maxval", SPANS)
+def test_randint_bitwise(minval, maxval, dtype):
+    """``randint`` in int32 and in int64 (JAX's default ``int`` under
+    ``jax_enable_x64``) over 256 keys, shapes ``()`` and ``(3,)``."""
+    keys, jkeys = prng.split(prng.key(9), 256), jax.random.split(_jkey(9), 256)
+    for shape in ((), (3,)):
+        got = prng.randint(keys, shape, minval, maxval, getattr(torch, dtype)).numpy()
+        want = np.asarray(jax.vmap(
+            lambda k: jax.random.randint(k, shape, minval, maxval, getattr(jnp, dtype)))(jkeys))
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want, err_msg=str(shape))
+    if maxval <= minval:
+        assert (got == minval).all()
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_randint_per_element_bounds(dtype):
+    """Bounds that vary per key, as the suite's per-config ``initial_step``
+    does, broadcast from ``(C, 1)`` over ``(C, B)`` keys."""
+    keys, jkeys = prng.split(prng.key(3), 300), jax.random.split(_jkey(3), 300)
+    lo = np.arange(300) * 37 - 50
+    hi = lo + np.arange(300) * 1000
+    jdt = getattr(jnp, dtype)
+    got = prng.randint(keys, (), torch.as_tensor(lo), torch.as_tensor(hi),
+                       getattr(torch, dtype)).numpy()
+    want = jax.vmap(lambda k, a, b: jax.random.randint(k, (), a, b, jdt))(
+        jkeys, jnp.asarray(lo, jdt), jnp.asarray(hi, jdt))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    rows = prng.randint(keys.view(30, 10, 2), (), torch.as_tensor(lo[::10]).view(30, 1), 9000,
+                        getattr(torch, dtype))
+    want = jax.vmap(lambda k, a: jax.random.randint(k, (), a, 9000, jdt))(
+        jkeys, jnp.asarray(np.repeat(lo[::10], 10), jdt))
+    np.testing.assert_array_equal(rows.numpy().reshape(-1), np.asarray(want))

@@ -21,6 +21,7 @@ from pymgrid_tpu.core.spec import extract_spec as jax_extract_spec
 from pymgrid_tpu.core.tables import ensure_tables as jax_ensure_tables
 from pymgrid_tpu_torch import Microgrid
 from pymgrid_tpu_torch.algos import RuleBasedControl
+from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core import rollout as tro
 from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.core.engine import make_reset_fn
@@ -176,11 +177,16 @@ def test_table_policy_matches_jax_every_action(tables):
     assert len(np.unique(np.asarray(want["grid"]))) > len(lists)   # states differ
 
 
+def _keys(seed, C, B):
+    return prng.split(prng.key(seed), C * B).view(C, B, 2)
+
+
 def test_random_policy_shape_range_and_seed():
     spec, _, _, tparams = _setup(1, tables=False)
-    state = make_reset_fn(spec)(tparams, torch.zeros((2, 5), dtype=torch.int32))
-    draw = lambda seed: tro.make_random_policy(spec, torch.Generator().manual_seed(seed))(
-        tparams, state)
+    reset = make_reset_fn(spec)
+    starts = torch.zeros((2, 5), dtype=torch.int32)
+    draw = lambda seed: tro.make_random_policy(spec)(tparams, reset(tparams, starts,  # noqa: E731
+                                                                    _keys(seed, 2, 5)))
     a, b, c = draw(3), draw(3), draw(4)
     sizes = {"battery": (spec.n_battery,), "genset": (spec.n_genset, 2), "grid": (spec.n_grid,)}
     for k, tail in sizes.items():
@@ -188,6 +194,18 @@ def test_random_policy_shape_range_and_seed():
         assert bool(((a[k] >= 0) & (a[k] < 1)).all())
         assert torch.equal(a[k], b[k]) and not torch.equal(a[k], c[k])
     assert len(torch.unique(a["battery"])) == 10      # replicas draw apart
+    with pytest.raises(ValueError, match="keys"):
+        tro.make_random_policy(spec)(tparams, reset(tparams, starts))
+
+
+def _random_draws(spec, tparams, keys, n_steps):
+    """The random policy's actions along a rollout from ``keys``: the step's
+    keys are ``split(rng)[0]`` of the last step's."""
+    policy, draws = tro.make_random_policy(spec), []
+    for _ in range(n_steps):
+        draws.append(policy(tparams, {"rng": keys}))
+        keys = prng.split(keys)[..., 0, :]
+    return {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
 
 
 def test_rollout_actions_and_normalized_rollout_match_jax():
@@ -196,11 +214,9 @@ def test_rollout_actions_and_normalized_rollout_match_jax():
     the same draws."""
     n_steps, B = 25, 3
     spec, jspec, jparams, tparams = _setup(1, tables=True)
-    gen = torch.Generator().manual_seed(11)
-    policy = tro.make_random_policy(spec, gen)
-    state = make_reset_fn(spec)(tparams, torch.full((1, B), 100, dtype=torch.int32))
-    draws = [policy(tparams, state) for _ in range(n_steps)]
-    actions = {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+    state = make_reset_fn(spec)(tparams, torch.full((1, B), 100, dtype=torch.int32),
+                                _keys(0, 1, B))
+    actions = _random_draws(spec, tparams, state["rng"], n_steps)
 
     final, outs = tro.rollout_actions(spec, tparams, state, actions, normalized=True)
     keys = jax.random.split(jax.random.PRNGKey(0), B)
@@ -215,13 +231,42 @@ def test_rollout_actions_and_normalized_rollout_match_jax():
     np.testing.assert_array_equal(final["battery_charge"][0].numpy(),
                                   np.asarray(jfinal["battery_charge"]))
 
-    replay = tro.make_random_policy(spec, torch.Generator().manual_seed(11))
+    replay = tro.make_random_policy(spec)
     _, same = tro.rollout_policy(spec, tparams, state, replay, n_steps, normalized=True)
     for field in ("obs", "reward", "log_row"):
         assert torch.equal(getattr(same, field), getattr(outs, field)), field
-    _, (rewards, _) = tro.rollout_policy(spec, tparams, state, tro.make_random_policy(
-        spec, torch.Generator().manual_seed(11)), n_steps, normalized=True, collect=False)
+    _, (rewards, _) = tro.rollout_policy(spec, tparams, state, tro.make_random_policy(spec),
+                                         n_steps, normalized=True, collect=False)
     assert torch.equal(rewards, outs.reward)
+
+
+def test_random_policy_rollout_matches_jax():
+    """The random policy's actions on the reset state, and a 50-step float64
+    ``normalized=True`` rollout on scenario 0 with it, against the JAX policy
+    and ``make_rollout_fn`` from the same keys: bitwise (the uniforms are
+    built from threefry bits in both)."""
+    n_steps, B = 50, 3
+    spec, jspec, jparams, tparams = _setup(0, tables=True)
+    state = make_reset_fn(spec)(tparams, tparams["initial_step"].view(1, 1).expand(1, B),
+                                _keys(5, 1, B))
+    jkeys = jax.random.split(jax.random.PRNGKey(5), B)
+    jstate = jax.vmap(jax_reset_fn(jspec), in_axes=(None, 0))(jparams, jkeys)
+
+    got = tro.make_random_policy(spec)(tparams, state)
+    want = jax.vmap(jro.make_random_policy(jspec), in_axes=(None, 0))(jparams, jstate)
+    for k in want:
+        np.testing.assert_array_equal(got[k][0].numpy(), np.asarray(want[k]), err_msg=k)
+
+    final, outs = tro.rollout_policy(spec, tparams, state, tro.make_random_policy(spec),
+                                     n_steps, normalized=True)
+    jfn = jro.make_rollout_fn(jspec, jro.make_random_policy(jspec), n_steps, normalized=True)
+    jfinal, jouts = jax.vmap(jfn, in_axes=(None, 0), out_axes=(0, 1))(jparams, jstate)
+    for field in ("obs", "reward", "done", "log_row"):
+        np.testing.assert_array_equal(getattr(outs, field)[:, 0].numpy(),
+                                      np.asarray(getattr(jouts, field)), err_msg=field)
+    np.testing.assert_array_equal(final["rng"][0].numpy(),
+                                  np.asarray(jfinal["rng"]).astype(np.int64))
+    assert len(np.unique(outs.reward.numpy())) > n_steps  # replicas and steps differ
 
 
 def test_select_state_keeps_a_shared_step():
