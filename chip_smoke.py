@@ -22,9 +22,12 @@ which fails the run on error:
               in float64 over the first 2000 steps of the year (held bitwise
               against the golden stream);
               the 25-config suite (20480 replicas per config x 1000 steps,
-              float32, randomized starts drawn from ``make_keys(0)`` and
-              equal to the CPU's, auto-reset; held against the same rollout
-              on the CPU in float64 for 4 replicas per config).
+              float32, ``fn(params, make_keys(0))``: randomized starts drawn
+              inside, equal to the CPU's, auto-reset; the default
+              block-prefetch path, its 125 block gathers counted,
+              ``torch.equal`` to ``block_prefetch=False`` at the same size,
+              both timed and profiled over 16 steps; held against the same
+              rollout on the CPU in float64 for 4 replicas per config).
 3. envs       the batched RL envs through their user entry points at
               ``bench.py``'s widths (65536 replicas x 100 steps, float32):
               ``BatchedDiscreteEnv`` on scenario 0 and ``BatchedContinuousEnv``
@@ -262,46 +265,80 @@ def phase_golden(device, scenario=1, max_steps=None):
 
 
 def phase_suite(device, n_configs, replicas, n_steps, ref_replicas=4, seed=0,
-                rtol=1e-4):
-    """Main path, suite: ``n_configs`` scenarios x ``replicas`` in float32
-    with randomized starts drawn from ``make_keys(seed)`` (the JAX runner's
-    draws) and auto-reset; the starts equal those drawn on the CPU
+                rtol=1e-4, trace_dir=None, profile_steps=(8, 24)):
+    """Main path, suite: ``n_configs`` scenarios x ``replicas`` in float32,
+    called as ``fn(params, make_keys(seed))``: randomized starts drawn from
+    the keys inside the rollout (the JAX runner's draws) and auto-reset.  The
+    default rollout runs the block-prefetch path (one row-window gather per
+    8 steps, counted) and is ``torch.equal`` to the same rollout with
+    ``block_prefetch=False``; the starts equal those drawn on the CPU
     (``torch.equal``), and the first ``ref_replicas`` of every config are
     held against the same rollout on the CPU in float64 at rtol 1e-4
-    (float32 against float64 over ``n_steps`` steps)."""
+    (float32 against float64 over ``n_steps`` steps).  Both paths are timed
+    (the blocked one twice, before and after the per-step one); with
+    ``trace_dir``, each path's device events and busy time per step under
+    ``torch.profiler`` (the difference of rollouts of ``profile_steps``
+    steps, multiples of 8, so the reset cancels)."""
     import torch
 
     from pymgrid_tpu_torch import Microgrid
     from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
     from pymgrid_tpu_torch.parallel import SuiteRunner
+    from pymgrid_tpu_torch.parallel import suite as suite_module
+    from pymgrid_tpu_torch.utils.profiling import device_summary, trace
 
     def runner_on(dev, dtype, batch):
         mgs = [Microgrid.from_scenario(n) for n in range(n_configs)]
         return SuiteRunner(mgs, batch_per_config=batch, dtype=dtype, device=dev)
 
-    def run(dev, dtype, batch, starts):
-        runner = runner_on(dev, dtype, batch)
-        fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), n_steps,
+    def rollout(runner, keys, block_prefetch=None, steps=n_steps):
+        fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), steps,
                                auto_reset=True, collect=False,
-                               randomize_initial_step=True)
-        if starts is None:
-            starts = runner.draw_initial_steps(runner.make_keys(seed))
-        acc, seconds = _timed(lambda: fn(runner.params, starts.to(runner.device)), dev)
-        return acc, starts, seconds
+                               randomize_initial_step=True, block_prefetch=block_prefetch)
+        return fn(runner.params, keys.to(runner.device))
 
-    acc, starts, seconds = run(device, "float32", replicas, None)
+    runner = runner_on(device, "float32", replicas)
+    keys = runner.make_keys(seed)
+    gathers, gather = [], suite_module.gather_block
+    suite_module.gather_block = lambda *a: gathers.append(1) or gather(*a)
+    try:
+        acc, seconds = _timed(lambda: rollout(runner, keys), device)
+    finally:
+        suite_module.gather_block = gather
+    _check(len(gathers) == n_steps // suite_module.BLOCK,
+           f"suite: the default rollout made {len(gathers)} block gathers, not "
+           f"{n_steps // suite_module.BLOCK}: it did not run the block-prefetch path")
     _check(acc.shape == (n_configs, replicas) and bool(torch.isfinite(acc).all()),
            "suite: non-finite or misshapen output")
+    per_step, seconds_per_step = _timed(lambda: rollout(runner, keys, False), device)
+    _check(torch.equal(acc, per_step),
+           "suite: the block-prefetch rollout differs from the per-step rollout")
+    again, seconds_again = _timed(lambda: rollout(runner, keys), device)
+    _check(torch.equal(again, acc), "suite: a second blocked rollout differs from the first")
+
     cpu = runner_on("cpu", "float32", replicas)
-    _check(torch.equal(starts.cpu(), cpu.draw_initial_steps(cpu.make_keys(seed))),
+    _check(torch.equal(runner.draw_initial_steps(keys).cpu(),
+                       cpu.draw_initial_steps(cpu.make_keys(seed))),
            "suite: the starts drawn on the card differ from the CPU's")
-    ref, _, _ = run("cpu", "float64", ref_replicas, starts[:, :ref_replicas].cpu())
+    ref = rollout(runner_on("cpu", "float64", ref_replicas), keys[:, :ref_replicas].cpu())
     got = acc[:, :ref_replicas].double().cpu()
     rel = ((got - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
     _check(rel <= rtol, f"suite vs CPU float64: max rel diff {rel:.3e} > {rtol}")
-    return {"seconds": seconds,
-            "steps_per_s": n_configs * replicas * n_steps / seconds,
-            "max_rel_vs_cpu_f64": rel}
+    out = {"seconds": seconds, "seconds_again": seconds_again,
+           "seconds_per_step_path": seconds_per_step,
+           "steps_per_s": n_configs * replicas * n_steps / seconds,
+           "max_rel_vs_cpu_f64": rel}
+    if trace_dir is not None:
+        n = profile_steps[1] - profile_steps[0]
+        for name, block_prefetch in (("blocked", None), ("per_step", False)):
+            runs = []
+            for k, steps in enumerate(profile_steps):
+                with trace(str(Path(trace_dir) / f"{name}{k}"), device) as prof:
+                    rollout(runner, keys, block_prefetch, steps)
+                runs.append(device_summary(prof))
+            out[f"events_per_step_{name}"] = (runs[1]["kernels"] - runs[0]["kernels"]) / n
+            out[f"busy_ms_per_step_{name}"] = (runs[1]["busy_ms"] - runs[0]["busy_ms"]) / n
+    return out
 
 
 def _host_env_run(env, actions):
@@ -942,8 +979,7 @@ def phase_suite_collect(device, n_configs=25, replicas=1024, n_steps=20, seed=0,
     def rollout(runner, steps, randomize=True):
         fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), steps,
                                auto_reset=True, collect=True, randomize_initial_step=randomize)
-        keys = runner.make_keys(seed)
-        return fn(runner.params, runner.draw_initial_steps(keys), keys)
+        return fn(runner.params, runner.make_keys(seed))
 
     runner = runner_on(device)
     rollout(runner, 1)                       # first launches, not timed
@@ -1114,10 +1150,18 @@ def main():
     gold = phase_golden(device, max_steps=2000)
     print(f"main/golden: scenario 1, first {gold['steps']} steps of the year (f64) bitwise "
           f"in {gold['seconds']:.2f} s {tag}", flush=True)
-    suite = phase_suite(device, 25, 20480, 1000)
-    print(f"main/suite: 25 x 20480 x 1000 steps in {suite['seconds']:.4f} s, "
-          f"{suite['steps_per_s']:.6g} env-steps/s, max rel vs CPU f64 "
+    with tempfile.TemporaryDirectory(prefix=".suite-trace-", dir=REPO) as trace_dir:
+        suite = phase_suite(device, 25, 20480, 1000, trace_dir=trace_dir)
+    print(f"main/suite: 25 x 20480 x 1000 steps, block-prefetch path in "
+          f"{suite['seconds']:.4f} s ({suite['steps_per_s']:.6g} env-steps/s; again after "
+          f"the per-step path {suite['seconds_again']:.4f} s), per-step path "
+          f"{suite['seconds_per_step_path']:.4f} s, torch.equal; max rel vs CPU f64 "
           f"{suite['max_rel_vs_cpu_f64']:.3e} {tag}", flush=True)
+    print(f"main/suite profile over 16 steps: block-prefetch "
+          f"{suite['events_per_step_blocked']:.2f} device events per step, busy "
+          f"{suite['busy_ms_per_step_blocked']:.4f} ms per step; per-step "
+          f"{suite['events_per_step_per_step']:.2f} events, busy "
+          f"{suite['busy_ms_per_step_per_step']:.4f} ms per step {tag}", flush=True)
     launches = sweep["rollout"].launches + eng["kernel_launches"]
     _check(launches > 0, "the main path launched no rbc_rollout kernel")
 

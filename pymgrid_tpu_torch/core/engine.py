@@ -447,8 +447,14 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True,
         log_vals = {}
         shaper_terms = []   # (name, field, value) the reward shapers sum
 
+        # one row gather serves every module's current row and the outgoing
+        # observation's tabulated segments; a prefetched ``state["table_row"]``
+        # (the suite's block-prefetch rollout) holds the same values, and the
+        # new state never carries it
         table_row = None
-        if "step_table" in params:
+        if "table_row" in state:
+            table_row = state["table_row"]
+        elif "step_table" in params:
             table_row = gather_rows(params["step_table"], t)
         logfc_row = None
         if with_log and "logfc_table" in params:

@@ -112,17 +112,18 @@ def rollout_actions(spec, params, state, actions, normalized=False):
     return state, StepOutput(*[torch.stack(field) for field in zip(*outs)])
 
 
-def make_lockstep_sweep_fn(spec, policy, n_steps):
+def make_lockstep_sweep_fn(spec, policy, n_steps, normalized=False):
     """Rollout for LOCKSTEP replica sweeps: every replica of a config shares
     the simulated time (``state["step"]`` is ``(C, 1)``), only battery charge
     and the genset machine are per replica.  Time-dependent rows are read
     once per config per step, rewards accumulate, nothing is written per
     step.
 
-    Returns ``(params, states) -> (final_states, cum_reward (C, B))``, with
-    ``states`` from :func:`lockstep_states`.
+    ``normalized``: the policy's actions are in [0, 1], as
+    :func:`make_rollout_fn`'s.  Returns ``(params, states) -> (final_states,
+    cum_reward (C, B))``, with ``states`` from :func:`lockstep_states`.
     """
-    step_fn = make_step_fn(spec, with_obs=False, with_log=False)
+    step_fn = make_step_fn(spec, normalized=normalized, with_obs=False, with_log=False)
 
     def sweep(params, states):
         acc = torch.zeros(states["battery_charge"].shape[:2],
@@ -145,12 +146,18 @@ def lockstep_states(spec, params, batched_states):
     return out
 
 
-def _row_accessor(spec, params, t):
+def _row_accessor(spec, params, t, state=None):
     """``(kind, slot) -> current raw ts row (C, B, width)`` at step ``t``:
-    one row gather from ``step_table`` when tables are attached, per-slot
-    series reads otherwise; both give the same values."""
-    if "step_table" in params:
+    a prefetched ``state["table_row"]`` (the suite's block-prefetch rollout)
+    when the state carries one, else one row gather from ``step_table`` when
+    tables are attached, else per-slot series reads; all give the same
+    values."""
+    raw = None
+    if state is not None and "table_row" in state:
+        raw = state["table_row"]
+    elif "step_table" in params:
         raw = gather_rows(params["step_table"], t)
+    if raw is not None:
         layout, _ = row_table_layout(spec)
 
         def cur(kind, slot):
@@ -280,7 +287,7 @@ def make_priority_policy(spec, priority_list):
         t = state["step"]
         device = t.device
         zero = torch.zeros((), dtype=dtype, device=device)
-        cur_row = _row_accessor(spec, params, t)
+        cur_row = _row_accessor(spec, params, t, state)
         remaining = _net_load(spec, cur_row, zero)
         slots = {"battery": {}, "genset": {}, "genset_goal": {}, "grid": {}}
 
@@ -325,7 +332,7 @@ def make_marginal_cost_policy(spec):
         t = state["step"]
         device = t.device
         zero = torch.zeros((), dtype=dtype, device=device)
-        cur_row = _row_accessor(spec, params, t)
+        cur_row = _row_accessor(spec, params, t, state)
         remaining = _net_load(spec, cur_row, zero)
 
         costs, deploys = [], []
@@ -417,7 +424,7 @@ def make_table_policy(spec, priority_lists, device="cuda"):
     def policy(params, state, action_idx):
         t = state["step"]
         zero = torch.zeros((), dtype=dtype, device=t.device)
-        cur_row = _row_accessor(spec, params, t)
+        cur_row = _row_accessor(spec, params, t, state)
         remaining = _net_load(spec, cur_row, zero)
         row = table[action_idx.long().clamp(0, n_actions - 1)]   # (C, B, 3 * n_pos)
         kinds, slots, goals = row.unflatten(-1, (3, n_positions)).unbind(-2)

@@ -122,13 +122,13 @@ def dryrun_multichip(n_devices, device="cuda"):
             raise RuntimeError("meshed env rollout: shared_step=True differs from the "
                                "per-replica-step rollout")
 
-        # the suite per-step rollout with configs sharded over the job
+        # the suite rollout (blocked: 16 steps are two blocks) with configs
+        # sharded over the job
         runner = SuiteRunner([Microgrid.from_scenario(s) for s in range(n_devices)],
                              batch_per_config=4, dtype="float32", mesh=mesh)
         fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), n_steps,
                                auto_reset=True, collect=False, randomize_initial_step=True)
-        acc = dist.fetch(fn(runner.params,
-                            runner.draw_initial_steps(runner.make_keys(0))))
+        acc = dist.fetch(fn(runner.params, runner.make_keys(0)))
         if not np.isfinite(acc).all():
             raise RuntimeError("meshed suite rollout: non-finite output")
     finally:

@@ -230,6 +230,10 @@ class BatchedDiscreteEnv(_BatchedEnv):
             self.spec, [list(pl) for pl in env.actions_list], self.device
         )
 
+    def step(self, states, action_indices, keep_logs=True):
+        """One step with ``(B,)`` integer actions; see :meth:`_BatchedEnv.step`."""
+        return super().step(states, action_indices, keep_logs)
+
     def _engine_action(self, states, actions):
         return self._policy(self.params, states, actions)
 

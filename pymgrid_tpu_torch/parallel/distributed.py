@@ -82,7 +82,7 @@ def backend_for(device):
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None,
-               device="cuda"):
+               device="cuda", **kwargs):
     """Join this process to the job (wraps ``init_process_group``: NCCL for a
     CUDA ``device``, gloo for the CPU).
 
@@ -92,7 +92,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     Returns ``False`` and does nothing for a single process with no
     coordinator, and when a process group already exists; ``True`` once
     this call has joined the job.  Rendezvous and collectives time out
-    after 300 s.
+    after 300 s unless ``kwargs`` give another ``timeout``; every keyword
+    argument passes on to ``init_process_group``, as the JAX function's
+    pass on to ``jax.distributed.initialize``.
     """
     if torch_dist.is_initialized():
         return False
@@ -108,9 +110,10 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
         init_method = coordinator_address
     else:
         init_method = f"tcp://{coordinator_address}"
+    kwargs.setdefault("timeout", datetime.timedelta(seconds=300))
     torch_dist.init_process_group(
         backend_for(device), init_method=init_method, world_size=num_processes,
-        rank=process_id, timeout=datetime.timedelta(seconds=300),
+        rank=process_id, **kwargs,
     )
     return True
 

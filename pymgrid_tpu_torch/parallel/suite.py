@@ -6,18 +6,27 @@ the JAX package: neutral modules for absent kinds contribute exactly +/-0.0),
 so all configs share one :class:`~pymgrid_tpu_torch.core.spec.MicrogridSpec`;
 params stack along a leading config axis and the engine steps ``(C, B)`` = configs x replicas at once.
 
-Episode starts are an explicit ``(C, B)`` input.  Randomized starts are the
-JAX runner's: :meth:`SuiteRunner.draw_initial_steps` draws each replica's
-``randint(fold_in(key, 0x51A7), (), initial_step, max_start)`` from the keys
-``split(key(seed), C*B)`` that :meth:`SuiteRunner.make_keys` gives, as the
-JAX runner's ``make_keys`` does, so the port starts where JAX starts for the
-same seed (the draw under ``jax_enable_x64``, as the JAX package's tests
-and float64 tools run it).  Rollouts that draw (threefry-gaussian
-forecasts, collect-mode randomized restarts) carry the keys as the state's
-``rng``, which every step splits as the JAX engine does, and a restart
-draws from the replica's own split key.  Only the per-step path is ported;
-the JAX runner's block-prefetch mode is a TPU gather optimisation left for
-later (ROADMAP.md A15).  Collected outputs come back as ``(C, B, T, ...)``.
+``rollout_fn``'s function takes the keys ``(C, B, 2)`` that
+:meth:`SuiteRunner.make_keys` gives (``split(key(seed), C*B)``, as the JAX
+runner's ``make_keys``) and draws the starts from them, as the JAX runner
+does: with randomized starts each replica's
+``randint(fold_in(key, 0x51A7), (), initial_step, max_start)``
+(:meth:`SuiteRunner.draw_initial_steps`; the draw under ``jax_enable_x64``,
+as the JAX package's tests and float64 tools run it), else every config's
+``initial_step``.  Rollouts that draw (threefry-gaussian forecasts,
+collect-mode randomized restarts) carry the keys as the state's ``rng``,
+which every step splits as the JAX engine does, and a restart draws from the
+replica's own split key.  Collected outputs come back as ``(C, B, T, ...)``.
+
+The throughput mode with randomized starts runs, by default, the JAX
+runner's block-prefetch rollout: its auto-reset wraps sequentially, so a
+replica's step advances by one each step and the step-table rows of
+``BLOCK`` steps are one window per replica, gathered once per block
+(:func:`gather_block`) instead of one row per step in the policy and
+another in the engine.  A replica that wraps inside a block reads the
+window's rows past ``max_start``, which the rollout's copy of the table
+holds as the rows from ``initial_step`` on, so every step reads the row
+the per-step path reads, bitwise.
 """
 import numpy as np
 import torch
@@ -37,6 +46,8 @@ from pymgrid_tpu_torch.core.tables import ensure_tables
 from pymgrid_tpu_torch.parallel.distributed import local_layout
 
 __all__ = ["normalize_to_superset", "build_suite", "SuiteRunner"]
+
+BLOCK = 8  # steps per row prefetch in the block-prefetch rollout (the JAX runner's BLK)
 
 _CANONICAL_ORDER = ("load", "renewable", "balancing", "battery", "genset", "grid")
 
@@ -158,14 +169,38 @@ def build_suite(microgrids, dtype, device="cuda", include_genset=True):
     return first, ensure_tables(first, stacked, config_axis=True)
 
 
+def gather_block(table, steps):
+    """The step-table rows of ``BLOCK`` consecutive steps from each replica's
+    step: ``table (C, T, W)``, ``steps (C, B)`` -> ``(BLOCK, C, B, W)``; the
+    start clamps so the window fits, as ``lax.dynamic_slice`` clamps.  Time
+    leads, so each step's rows are one contiguous ``(C, B, W)`` slab: a
+    strided view into the whole block would have the step's elementwise ops
+    index past 2**31 bytes at bench size, which splits each into two
+    launches."""
+    start = steps.long().clamp(0, table.shape[1] - BLOCK)
+    idx = start + torch.arange(BLOCK, device=table.device).view(BLOCK, 1, 1)
+    return table[torch.arange(table.shape[0], device=table.device).view(-1, 1), idx]
+
+
+def _patched_table(table, initial_step, max_start):
+    """A copy of ``table (C, T, W)`` whose rows ``[max_start, max_start +
+    BLOCK)`` hold each config's rows ``[initial_step, initial_step +
+    BLOCK)``: the rows a replica that wrapped inside a block reads."""
+    configs = torch.arange(table.shape[0], device=table.device).unsqueeze(1)
+    rows = initial_step.long().unsqueeze(1) + torch.arange(BLOCK, device=table.device)
+    out = table.clone()
+    out[:, max_start:max_start + BLOCK] = table[configs, rows]
+    return out
+
+
 class SuiteRunner:
     """Run ``batch_per_config`` replicas of each config in lockstep.
 
     With ``mesh=`` (a :class:`~pymgrid_tpu_torch.parallel.distributed.BatchMesh`)
     the configs shard over the job's ranks, as the JAX runner shards them
     over its mesh: this rank holds its share of the configs' params on the
-    mesh's device, ``rollout_fn``'s function takes the global ``(C, B)``
-    starts and returns this rank's ``(C / world, B)`` rows, which
+    mesh's device, ``rollout_fn``'s function takes every config's keys and
+    returns this rank's ``(C / world, B)`` rows, which
     :func:`~pymgrid_tpu_torch.parallel.distributed.fetch` assembles."""
 
     def __init__(self, microgrids, batch_per_config, dtype, device="cuda", mesh=None):
@@ -180,6 +215,20 @@ class SuiteRunner:
         ts_lengths = [m.ts_length for m in self.spec.log_order if m.ts_length]
         # replicas start in [initial_step, max_start)
         self.max_start = (min(ts_lengths) if ts_lengths else 1) - 1
+        # the block-prefetch rollout reads the per-step path's rows when every
+        # config's episodes end at max_start - 1 (so a replica's step passes
+        # max_start only by wrapping to initial_step), the table holds the
+        # BLOCK rows past max_start that the wrapped replicas read, and an
+        # episode lasts BLOCK steps or more (a replica wraps at most once per
+        # block); decided on every config, so all ranks of a mesh agree
+        episode_end = torch.cat([params[k]["final_step"].reshape(self.n_configs, -1)
+                                 for k in ("load", "renewable", "grid")], dim=1)
+        self._blockable = bool(
+            params["step_table"].shape[1] >= self.max_start + BLOCK
+            and episode_end.shape[1] > 0
+            and (episode_end.amin(dim=1) == self.max_start).all()
+            and (self.max_start - self._initial_step >= BLOCK).all()
+        )
 
     def _draw(self, initial_step, keys):
         """``randint(fold_in(key, 0x51A7), (), initial_step, max_start)`` per
@@ -197,7 +246,8 @@ class SuiteRunner:
         ``(C, B, 2)`` (:meth:`make_keys`), uniform in ``[initial_step,
         max_start)`` per config, as the JAX runner draws them; on the
         runner's device.  ``C`` is every config, also with a mesh: each rank
-        draws the same starts, whatever the world size."""
+        draws the same starts, whatever the world size.  ``rollout_fn``'s
+        randomized rollouts start here."""
         return self._draw(self._initial_step, keys.to(self.device))
 
     def make_keys(self, seed=0):
@@ -207,20 +257,27 @@ class SuiteRunner:
                           self.n_configs * self.batch_per_config)
         return keys.view(self.n_configs, self.batch_per_config, 2)
 
-    def fixed_initial_steps(self):
-        """``(C, B)`` starts at every config's ``initial_step``."""
-        return (self._initial_step.to(torch.int32).unsqueeze(1)
-                .expand(self.n_configs, self.batch_per_config).contiguous())
+    def _local_keys(self, keys):
+        """This rank's rows of every config's keys, on the runner's device;
+        ``ValueError`` for any other shape."""
+        want = (self.n_configs, self.batch_per_config, 2)
+        if not torch.is_tensor(keys) or tuple(keys.shape) != want:
+            shape = tuple(keys.shape) if hasattr(keys, "shape") else type(keys).__name__
+            raise ValueError(f"the suite rollout takes (params, keys) with keys of shape "
+                             f"{want} from make_keys(seed), got {shape}")
+        return keys[self._configs].to(self.device)
 
     def rollout_fn(self, policy, n_steps, auto_reset=True, collect=False,
-                   randomize_initial_step=False):
-        """``(params, initial_steps, keys=None) -> outputs``.
+                   randomize_initial_step=False, block_prefetch=None):
+        """``(params, keys) -> outputs``, ``keys`` every config's
+        ``(C, B, 2)`` keys from :meth:`make_keys`, as the JAX runner's.
 
-        ``keys`` (every config's, :meth:`make_keys`) key the rollouts that
-        draw: threefry-gaussian forecasts and the collect mode's randomized
-        restarts, which raise without them; pass the keys the starts were
-        drawn from (``draw_initial_steps(keys)``), as the JAX runner draws
-        both from one set.  Other rollouts ignore them.
+        The rollout starts each replica at the start drawn from its key
+        (:meth:`draw_initial_steps`) with ``randomize_initial_step``, at its
+        config's ``initial_step`` otherwise.  The keys also key the rollouts
+        that draw: threefry-gaussian forecasts and the collect mode's
+        randomized restarts carry them as the state's ``rng``; other
+        rollouts carry no keys.
 
         With ``collect=False`` (throughput mode) returns the ``(C, B)``
         reward + obs checksum per env; with ``collect=True`` returns
@@ -233,6 +290,17 @@ class SuiteRunner:
         restarts it, at a start drawn from its split key ``new_state["rng"]``
         (drawn every step, kept where ``done``).  Otherwise it restarts at
         ``params["initial_step"]``.
+
+        ``block_prefetch``: gather the step-table rows once per ``BLOCK``
+        steps (see the module docstring).  ``None`` turns it on for the
+        sequential-wrap throughput mode (``randomize_initial_step``,
+        ``auto_reset``, not ``collect``), ``False`` keeps the per-step
+        gathers, and ``True`` in another mode raises ``ValueError``.  Where
+        the blocked rollout would not read the per-step path's rows (``n_steps``
+        not a multiple of ``BLOCK``, an episode that does not end at
+        ``max_start - 1``, fewer than ``max_start + BLOCK`` table rows, or an
+        episode shorter than ``BLOCK`` steps) it runs the per-step path; both
+        give the same outputs, bitwise.
         """
         spec = self.spec
         step_fn = make_step_fn(spec, with_obs=True, with_log=collect)
@@ -241,6 +309,12 @@ class SuiteRunner:
         redraw = randomize_initial_step and auto_reset and collect
         keyed = needs_keys(spec) or redraw
         max_start = self.max_start
+        if block_prefetch is None:
+            block_prefetch = seq_mode
+        if block_prefetch and not seq_mode:
+            raise ValueError("block_prefetch requires randomize_initial_step, "
+                             "auto_reset and collect=False")
+        blocked = bool(block_prefetch) and n_steps % BLOCK == 0 and self._blockable
 
         def reset_target(params, new_state):
             i0 = params["initial_step"].to(torch.int32).unsqueeze(1)
@@ -250,35 +324,38 @@ class SuiteRunner:
                 return self._draw(params["initial_step"], new_state["rng"])
             return i0.expand(new_state["step"].shape)
 
-        def suite_rollout(params, initial_steps, keys=None):
-            if tuple(initial_steps.shape) != (self.n_configs, self.batch_per_config):
-                raise ValueError(
-                    f"initial_steps must be (n_configs, batch_per_config) = "
-                    f"{(self.n_configs, self.batch_per_config)}, got "
-                    f"{tuple(initial_steps.shape)}"
-                )
-            initial_steps = initial_steps[self._configs]
-            if keyed:
-                if keys is None:
-                    raise ValueError(
-                        "this rollout draws (threefry-gaussian forecasts or randomized "
-                        "restarts): pass the keys the starts were drawn from, "
-                        "make_keys(seed)")
-                keys = keys[self._configs].to(initial_steps.device)
+        def advance(params, states):
+            action = policy(params, states)
+            new_states, out = step_fn(params, states, action)
+            if auto_reset:
+                fresh = reset_fn(params, reset_target(params, new_states),
+                                 new_states.get("rng"))
+                new_states = select_state(out.done, fresh, new_states)
+            return new_states, out
+
+        def suite_rollout(params, keys):
+            keys = self._local_keys(keys)
+            if randomize_initial_step:
+                starts = self._draw(params["initial_step"], keys)
             else:
-                keys = None
-            states = reset_fn(params, initial_steps, keys)
-            acc = torch.zeros(initial_steps.shape, dtype=self.dtype,
-                              device=initial_steps.device)
+                starts = params["initial_step"].to(torch.int32).unsqueeze(1).expand(
+                    keys.shape[:2])
+            states = reset_fn(params, starts, keys if keyed else None)
+            acc = torch.zeros(starts.shape, dtype=self.dtype, device=starts.device)
+            if blocked:
+                table = _patched_table(params["step_table"], params["initial_step"],
+                                       max_start)
+                for _ in range(n_steps // BLOCK):
+                    rows = gather_block(table, states["step"])
+                    for row in rows:
+                        # the row rides in this step's state only: the new
+                        # state never carries it
+                        states, out = advance(params, {**states, "table_row": row})
+                        acc = acc + out.reward + out.obs.sum(dim=-1)
+                return acc
             outs = []
             for _ in range(n_steps):
-                action = policy(params, states)
-                new_states, out = step_fn(params, states, action)
-                if auto_reset:
-                    fresh = reset_fn(params, reset_target(params, new_states),
-                                     new_states.get("rng"))
-                    new_states = select_state(out.done, fresh, new_states)
-                states = new_states
+                states, out = advance(params, states)
                 acc = acc + out.reward + out.obs.sum(dim=-1)
                 if collect:
                     outs.append(out)

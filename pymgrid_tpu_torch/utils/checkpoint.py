@@ -15,9 +15,8 @@ one directory, so the files together hold the global batch in rank order,
 as the JAX package's orbax checkpoint holds the global sharded array.
 :func:`restore_rank_state` gives each rank its own rows back and refuses a
 restore at another world size or global batch.  Unlike the JAX
-``save_state(path, state, *, force=True)``, which always writes a
-directory, the port's unsharded :func:`save_state` writes one file and
-always overwrites it.
+:func:`save_state`, which writes a directory, the port's unsharded one
+writes one file; as the JAX one, it overwrites it unless ``force=False``.
 
 Resume is exact: restoring a state and continuing produces the same
 trajectory, bitwise, as an uninterrupted run (tests/test_torch_checkpoint.py).
@@ -31,10 +30,13 @@ from pymgrid_tpu_torch.core.params import tree_map
 __all__ = ["save_state", "restore_state", "save_rank_state", "restore_rank_state"]
 
 
-def save_state(path, state):
+def save_state(path, state, *, force=True):
     """Write the state dict ``state`` (tensor leaves) to the file ``path``;
-    its directory is created if missing."""
+    its directory is created if missing.  ``force=False`` refuses to
+    overwrite an existing ``path`` with the JAX function's ``ValueError``."""
     path = os.path.abspath(os.fspath(path))
+    if not force and os.path.exists(path):
+        raise ValueError(f"Destination {path} already exists.")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(tree_map(lambda x: x.detach().cpu(), state), path)
 

@@ -15,6 +15,7 @@ Port of :mod:`pymgrid_tpu.utils.profiling`:
 """
 import contextlib
 import os
+import tempfile
 import time
 
 import numpy as np
@@ -32,13 +33,16 @@ def _sync(device):
 
 
 @contextlib.contextmanager
-def trace(log_dir, device="cuda"):
+def trace(log_dir=None, device="cuda"):
     """Profile the block with ``torch.profiler``: host activity, and CUDA
     activity when ``device`` is CUDA (the device is synchronized before the
     capture ends, so queued kernels are in it).  Yields the profiler; on exit
-    writes its Chrome trace to ``log_dir/trace.json``."""
+    writes its Chrome trace to ``log_dir/trace.json`` (by default
+    ``pymgrid_tpu_torch_trace`` in the system's temporary directory)."""
     from torch.profiler import ProfilerActivity, profile
 
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "pymgrid_tpu_torch_trace")
     device = resolve_device(device)
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":

@@ -180,6 +180,22 @@ def test_continuous_rollout_matches_step_loop(shared_step):
     _compare_rollout_with_loop(env, actions, keep_logs=True, shared_step=shared_step)
 
 
+def test_discrete_step_takes_the_jax_keyword():
+    """``BatchedDiscreteEnv.step(states, action_indices=...)``, the JAX
+    method's keyword, equals the positional call bitwise."""
+    env = BatchedDiscreteEnv(DiscreteMicrogridEnv(_modules(49)), batch_size=3,
+                             dtype="float64", device="cpu")
+    actions = np.random.RandomState(7).randint(env.n_actions, size=3)
+    states = env.reset()
+    want_states, want = env.step(states, actions)
+    got_states, got = env.step(states, action_indices=actions)
+    for field in ("reward", "done", "obs", "log_row"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    assert torch.equal(got_states["battery_charge"], want_states["battery_charge"])
+    _, lean = env.step(states, action_indices=actions, keep_logs=False)
+    assert lean.log_row is None and torch.equal(lean.reward, want.reward)
+
+
 def test_rollout_rejects_misshapen_actions():
     denv = BatchedDiscreteEnv(DiscreteMicrogridEnv(_modules(49)), batch_size=3,
                               dtype="float64", device="cpu")

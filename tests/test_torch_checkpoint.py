@@ -73,6 +73,30 @@ def test_restore_without_template(tmp_path):
     _assert_same_state(restore_state(tmp_path / "sub" / "c2.pt"), state)
 
 
+def test_save_without_force_refuses_to_overwrite(tmp_path):
+    """``save_state(..., force=False)`` on an existing checkpoint raises the
+    JAX function's ``ValueError`` (orbax: "Destination ... already exists")
+    and leaves the file as it was; ``force=True``, the default, overwrites."""
+    from pymgrid_tpu.utils.checkpoint import save_state as jax_save_state
+
+    compiled = CompiledMicrogrid(Microgrid(_modules(seed=1)), dtype="float64",
+                                 device="cpu")
+    first = compiled.reset()
+    second = {**first, "step": first["step"] + 1}
+    path = tmp_path / "c.pt"
+    save_state(path, first)
+    jax_save_state(tmp_path / "jax", {"x": np.zeros(2)})
+    with pytest.raises(ValueError, match="already exists") as jax_err:
+        jax_save_state(tmp_path / "jax", {"x": np.ones(2)}, force=False)
+    with pytest.raises(type(jax_err.value), match="already exists"):
+        save_state(path, second, force=False)
+    _assert_same_state(restore_state(path), first)
+    save_state(path, second, force=True)
+    _assert_same_state(restore_state(path), second)
+    save_state(tmp_path / "new.pt", second, force=False)   # nothing to overwrite
+    _assert_same_state(restore_state(tmp_path / "new.pt"), second)
+
+
 def test_restore_onto_template_dtypes_and_structure(tmp_path):
     """The template sets each leaf's dtype and device; a checkpoint whose
     nesting differs from the template's is refused."""

@@ -23,10 +23,15 @@ def test_golden_phase_cpu():
     assert out["steps"] == 30
 
 
-def test_suite_phase_cpu():
-    out = chip_smoke.phase_suite("cpu", n_configs=3, replicas=6, n_steps=12,
-                                 ref_replicas=2)
+def test_suite_phase_cpu(tmp_path):
+    """3 configs x 6 replicas x 16 steps (two blocks): the block-prefetch
+    path runs and equals the per-step path, and the profiled rollouts (a
+    CPU capture records no device events)."""
+    out = chip_smoke.phase_suite("cpu", n_configs=3, replicas=6, n_steps=16,
+                                 ref_replicas=2, trace_dir=tmp_path, profile_steps=(8, 16))
     assert out["max_rel_vs_cpu_f64"] <= 1e-4
+    assert out["seconds_per_step_path"] > 0 and out["seconds_again"] > 0
+    assert out["events_per_step_blocked"] == 0 and out["events_per_step_per_step"] == 0
 
 
 def test_kernel_sweep_phase_cpu():

@@ -34,6 +34,7 @@ from pymgrid_tpu_torch.parallel import (  # noqa: E402
     make_batch_mesh,
 )
 from pymgrid_tpu_torch.parallel import distributed as dist  # noqa: E402
+from pymgrid_tpu_torch.parallel import suite  # noqa: E402
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -98,7 +99,7 @@ def test_meshed_envs_split_rows_bitwise():
         assert torch.equal(got, want.log_row), cls.__name__
 
 
-def test_meshed_batched_microgrid_and_suite_split_rows_bitwise():
+def test_meshed_batched_microgrid_and_suite_split_rows_bitwise(monkeypatch):
     mg = lambda: Microgrid.from_scenario(0)  # noqa: E731
     full = BatchedMicrogrid(mg(), 4, "float64", device="cpu")
     shards = [BatchedMicrogrid(mg(), 4, "float64", mesh=m) for m in _ranks()]
@@ -123,13 +124,39 @@ def test_meshed_batched_microgrid_and_suite_split_rows_bitwise():
     for collect in (False, True):
         kw = dict(auto_reset=True, collect=collect, randomize_initial_step=True)
         policy = make_marginal_cost_policy(full.spec)
-        want = full.rollout_fn(policy, 12, **kw)(full.params, starts, keys)
-        got = [s.rollout_fn(policy, 12, **kw)(s.params, starts, s.make_keys(0))
-               for s in shards]
+        want = full.rollout_fn(policy, 16, **kw)(full.params, keys)
+        gathers = []
+        monkeypatch.setattr(suite, "gather_block",
+                            lambda *a, _gather=suite.gather_block: gathers.append(1) or _gather(*a))
+        got = [s.rollout_fn(policy, 16, **kw)(s.params, s.make_keys(0)) for s in shards]
+        monkeypatch.undo()
+        # the throughput mode's blocked rollout ran on each rank: 2 blocks of 8
+        assert len(gathers) == (0 if collect else 2 * len(shards))
         if collect:
             assert torch.equal(torch.cat([g[1].reward for g in got]), want[1].reward)
             got, want = [g[0] for g in got], want[0]
         assert torch.equal(torch.cat(got), want)
+
+
+def test_initialize_passes_keyword_arguments_on(monkeypatch):
+    """``initialize(..., **kwargs)`` hands its keyword arguments to
+    ``init_process_group`` (as the JAX function hands them to
+    ``jax.distributed.initialize``); a given ``timeout`` replaces the
+    300 s default."""
+    import datetime
+
+    calls = []
+    monkeypatch.setattr(dist.torch_dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist.torch_dist, "init_process_group",
+                        lambda *args, **kw: calls.append((args, kw)))
+    timeout = datetime.timedelta(seconds=42)
+    assert dist.initialize("127.0.0.1:1234", 2, 1, device="cpu", timeout=timeout,
+                           group_name="g")
+    assert dist.initialize("127.0.0.1:1234", 2, 0, device="cpu")
+    (args, kw), (_, default) = calls
+    assert args == ("gloo",) and kw == dict(init_method="tcp://127.0.0.1:1234", world_size=2,
+                                            rank=1, timeout=timeout, group_name="g")
+    assert default["timeout"] == datetime.timedelta(seconds=300)
 
 
 def _free_port():

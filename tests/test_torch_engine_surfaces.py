@@ -240,7 +240,7 @@ def test_batched_microgrid_and_suite_draw_jax_keys():
     _eq(keys, np.asarray(jrunner.make_keys(seed=6)).astype(np.int64))
     fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), 25, collect=True)
     jfn = jrunner.rollout_fn(jax_mc_policy(jrunner.spec), 25, collect=True)
-    acc, outs = fn(runner.params, runner.fixed_initial_steps(), keys=keys)
+    acc, outs = fn(runner.params, keys)
     jacc, jouts = jfn(jrunner.params, jrunner.make_keys(seed=6))
     _eq(outs.reward, jouts.reward)
     _close(outs.obs, jouts.obs)

@@ -94,6 +94,18 @@ def test_profiler_trace(tmp_path):
     assert device_summary(prof) == {"kernels": 0, "busy_ms": 0.0}
 
 
+def test_profiler_trace_default_directory(tmp_path, monkeypatch):
+    """Without ``log_dir`` the trace goes to ``pymgrid_tpu_torch_trace`` in
+    the system's temporary directory (the JAX function defaults to a
+    fixed ``pymgrid_tpu_trace`` directory)."""
+    import tempfile
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    with trace(device="cpu"):
+        torch.arange(16.0).sum()
+    assert (tmp_path / "pymgrid_tpu_torch_trace" / "trace.json").stat().st_size > 0
+
+
 def test_device_summary_unions_device_intervals():
     """Busy time is the union of the device events' intervals (us): two
     overlapping kernels and a separate copy; host events do not count."""

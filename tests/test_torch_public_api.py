@@ -2,6 +2,8 @@
 tests/test_public_api.py with the package renamed, so reference user code
 ports to ``pymgrid_tpu_torch`` with a package rename alone."""
 import importlib
+import inspect
+import pkgutil
 
 import pytest
 
@@ -163,3 +165,100 @@ def test_in_ipynb_false_outside_notebook():
     from pymgrid_tpu_torch.nonmodular import in_ipynb
 
     assert in_ipynb() is False
+
+
+# --------------------------------------------------------- parameter names
+# the JAX package's module names that the port renamed
+MODULE_RENAMES = {"mpc_jax": "mpc_batched", "saa_jax": "saa_batched",
+                  "pallas_rollout": "rbc_rollout"}
+NAME_RENAMES = {("pymgrid_tpu.ops.pallas_rollout", "make_pallas_rbc_rollout"): "make_rbc_rollout"}
+TPU_ONLY_MODULES = {"pymgrid_tpu.utils.layout", "pymgrid_tpu.utils.relay_guard"}
+# (JAX module, function or Class.method, parameter): why the port has no such
+# parameter.  Each names a JAX or TPU object with no counterpart on the port.
+NOT_PORTED = {
+    ("pymgrid_tpu.core.engine", "ts_obs_part", "jnp"):
+        "the array namespace to trace with; the port computes in torch only",
+    ("pymgrid_tpu.core.engine", "ts_obs_part", "dtype"):
+        "the output dtype of that namespace; the port's tensors carry their own",
+    ("pymgrid_tpu.ops.pallas_rollout", "make_pallas_rbc_rollout", "interpret"):
+        "Pallas interpret mode; the port's wrapper runs the plain version on CPU tensors",
+    ("pymgrid_tpu.parallel.batch", "make_batch_mesh", "axis_name"):
+        "a JAX mesh axis; the port's mesh is the torch.distributed job's ranks",
+    ("pymgrid_tpu.parallel.batch", "make_batch_mesh", "devices"):
+        "JAX device objects; each rank of the port's job owns one device",
+    ("pymgrid_tpu.parallel.distributed", "global_batch_mesh", "axis_name"):
+        "a JAX mesh axis; the port's mesh is the torch.distributed job's ranks",
+    ("pymgrid_tpu.parallel.distributed", "from_process_local", "axis_name"):
+        "a JAX mesh axis; the port's mesh is the torch.distributed job's ranks",
+    ("pymgrid_tpu.utils.profiling", "trace", "create_perfetto_link"):
+        "uploads the trace to the Perfetto UI; the port writes a Chrome trace file",
+}
+
+
+def _port_path(name):
+    parts = name.split(".")
+    return ".".join(["pymgrid_tpu_torch"] + [MODULE_RENAMES.get(p, p) for p in parts[1:]])
+
+
+def _parameters(fn):
+    try:
+        return inspect.signature(fn).parameters
+    except (TypeError, ValueError):   # builtins without a signature
+        return None
+
+
+def _signature_gaps():
+    """``{(JAX module, name, parameter or None): what the port lacks}`` over
+    every public function and class (its ``__init__`` and public methods)
+    defined in a module of the JAX package: a missing object or a missing
+    parameter name."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import pymgrid_tpu
+
+    gaps = {}
+    for info in pkgutil.walk_packages(pymgrid_tpu.__path__, "pymgrid_tpu."):
+        if info.name in TPU_ONLY_MODULES:
+            continue
+        jax_mod = importlib.import_module(info.name)
+        port_mod = importlib.import_module(_port_path(info.name))
+        for name, obj in vars(jax_mod).items():
+            if (name.startswith("_") or getattr(obj, "__module__", None) != info.name
+                    or not (inspect.isfunction(obj) or inspect.isclass(obj))):
+                continue
+            port_obj = getattr(port_mod, NAME_RENAMES.get((info.name, name), name), None)
+            if port_obj is None:
+                gaps[(info.name, name, None)] = "missing"
+                continue
+            pairs = [(name, obj, port_obj)]
+            if inspect.isclass(obj):
+                for member, fn in inspect.getmembers(obj, inspect.isfunction):
+                    if member.startswith("_") and member != "__init__":
+                        continue
+                    port_fn = getattr(port_obj, member, None)
+                    if port_fn is None:
+                        gaps[(info.name, f"{name}.{member}", None)] = "missing"
+                    else:
+                        pairs.append((f"{name}.{member}", fn, port_fn))
+            for label, fn, port_fn in pairs:
+                want, got = _parameters(fn), _parameters(port_fn)
+                if want is None or got is None:
+                    continue
+                for p in want:
+                    if p not in got:
+                        gaps[(info.name, label, p)] = "missing"
+    return gaps
+
+
+def test_port_takes_every_parameter_of_the_jax_package():
+    """Every public function and method of the JAX package exists in the
+    port under the renamed module, and takes every parameter name of the
+    JAX one, so user code ports with the renames alone (the port may take
+    more, such as ``device``, and needs ``dtype`` where JAX defaults it);
+    ``NOT_PORTED`` lists the exceptions, each with its reason, and holds no
+    entry that is no longer a gap."""
+    gaps = _signature_gaps()
+    unexplained = {k: v for k, v in gaps.items() if k not in NOT_PORTED}
+    assert not unexplained, unexplained
+    assert set(NOT_PORTED) <= set(gaps), set(NOT_PORTED) - set(gaps)

@@ -100,6 +100,44 @@ def test_lockstep_sweep_matches_jax():
     np.testing.assert_array_equal(acc[0].numpy(), np.asarray(want))
 
 
+def test_lockstep_sweep_normalized_matches_jax():
+    """``make_lockstep_sweep_fn(..., normalized=True)``: a constant
+    normalized-action policy (battery 0.3, genset on at 0.5, grid 0.6) over
+    8 init charges of scenario 1 for 50 steps in float64, bitwise against
+    the JAX sweep; the actions are denormalized (the plain sweep of the same
+    policy differs)."""
+    B, n_steps = 8, 50
+    spec, jspec, jparams, tparams = _setup(1, tables=True)
+    pb = jparams["battery"]
+    init = np.linspace(float(pb["min_capacity"][0]), float(pb["max_capacity"][0]), B)
+
+    def jpolicy(params, state):
+        return {"battery": jnp.full((1,), 0.3), "genset": jnp.array([[1.0, 0.5]]),
+                "grid": jnp.full((1,), 0.6)}
+
+    def policy(params, states):
+        shape = states["battery_charge"].shape[:2]
+        full = lambda *v: torch.tensor(v, dtype=torch.float64).expand(shape + (len(v),))  # noqa: E731
+        return {"battery": full(0.3), "genset": full(1.0, 0.5).unsqueeze(2),
+                "grid": full(0.6)}
+
+    keys = jax.random.split(jax.random.PRNGKey(0), B)
+    jstates = jax.jit(jax.vmap(jax_reset_fn(jspec), in_axes=(None, 0)))(jparams, keys)
+    jstates = {**jstates, "battery_charge": jnp.asarray(init)[:, None]}
+    jsweep = jro.make_lockstep_sweep_fn(jspec, jpolicy, n_steps, normalized=True)
+    _, want = jsweep(jparams, jro.lockstep_states(jspec, jparams, jstates))
+
+    starts = tparams["initial_step"].view(1, 1).expand(1, B)
+    states = make_reset_fn(spec)(tparams, starts)
+    states["battery_charge"] = torch.as_tensor(init).view(1, B, 1)
+    states = tro.lockstep_states(spec, tparams, states)
+    _, acc = tro.make_lockstep_sweep_fn(spec, policy, n_steps, normalized=True)(tparams, states)
+    assert len(np.unique(acc.numpy())) > B // 2  # distinct replicas
+    np.testing.assert_array_equal(acc[0].numpy(), np.asarray(want))
+    _, plain = tro.make_lockstep_sweep_fn(spec, policy, n_steps)(tparams, states)
+    assert not torch.equal(plain, acc)
+
+
 def _golden(scenario):
     with np.load(FIXTURE) as golden:
         return golden[f"scenario_{scenario}_reward"]

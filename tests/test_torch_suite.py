@@ -1,16 +1,17 @@
 """The port's suite rollout against the JAX SuiteRunner (CPU, float64).
 
-Both packages draw identical starts from the same seed: the JAX runner draws
-them from its keys inside its rollout, the test recomputes them from the same
-keys (as ``tests/test_suite.py::test_randomized_initial_step_matches_shifted_host``
+Both packages take the same call, ``fn(params, make_keys(seed))``, and draw
+identical starts from the keys inside the rollout: the test recomputes the
+JAX runner's starts from its keys (as
+``tests/test_suite.py::test_randomized_initial_step_matches_shifted_host``
 does), and the port's ``draw_initial_steps(make_keys(seed))`` must equal them
 bitwise.  Collect-mode restarts draw from the replicas' split keys in both
 packages, so their reward and done streams are compared bitwise.  Each
-package builds its microgrids with
-its own host layer.  The throughput-mode checksum
-``acc + reward + obs.sum(-1)`` contains a reduction whose order differs
-between the frameworks, so it is compared at rtol 1e-12; reward streams are
-compared bitwise.
+package builds its microgrids with its own host layer.  The throughput-mode
+checksum ``acc + reward + obs.sum(-1)`` contains a reduction whose order
+differs between the frameworks, so it is compared with JAX at rtol 1e-12;
+reward streams are compared bitwise, and the port's block-prefetch rollout
+is held bitwise against its own per-step rollout.
 """
 import dataclasses
 import warnings
@@ -27,8 +28,9 @@ from pymgrid_tpu.core.rollout import make_marginal_cost_policy as jax_mc_policy
 from pymgrid_tpu.parallel.suite import SuiteRunner as JaxSuiteRunner
 from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core import rollout as tro
-from pymgrid_tpu_torch.core.engine import make_reset_fn
+from pymgrid_tpu_torch.core.engine import make_reset_fn, needs_keys
 from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
+from pymgrid_tpu_torch.parallel import suite as suite_module
 from pymgrid_tpu_torch.parallel.suite import SuiteRunner
 
 torch.set_num_threads(1)
@@ -48,12 +50,33 @@ def _jax_starts(runner, keys):
     ], dtype=np.int32)
 
 
-def _compare_throughput_mode(make_mgs, B, n_steps, seed):
-    """``make_mgs(pkg)``: the configs, built by ``pkg``'s host layer."""
+@pytest.fixture
+def block_gathers(monkeypatch):
+    """Counts the block-prefetch rollout's row-window gathers: one per block
+    of ``BLOCK`` steps, none on the per-step path."""
+    calls = []
+    gather = suite_module.gather_block
+
+    def counted(table, steps):
+        calls.append(tuple(steps.shape))
+        return gather(table, steps)
+
+    monkeypatch.setattr(suite_module, "gather_block", counted)
+    return calls
+
+
+def _compare_throughput_mode(make_mgs, B, n_steps, seed, jax_block_prefetch=False,
+                             gathers=None):
+    """``make_mgs(pkg)``: the configs, built by ``pkg``'s host layer.  The
+    port's default rollout (blocked where eligible) against the JAX runner's
+    with ``jax_block_prefetch``, and bitwise against the port's per-step
+    rollout; ``gathers``, the :func:`block_gathers` record, must grow by one
+    per block when the port's rollout runs blocked.  Returns ``(starts,
+    whether the port ran blocked)``."""
     jrunner = JaxSuiteRunner(make_mgs(pymgrid_tpu), batch_per_config=B, dtype=np.float64)
     fn = jrunner.rollout_fn(
         jax_mc_policy(jrunner.spec), n_steps, auto_reset=True, collect=False,
-        randomize_initial_step=True, block_prefetch=False,
+        randomize_initial_step=True, block_prefetch=jax_block_prefetch,
     )
     keys = jrunner.make_keys(seed=seed)
     want = np.asarray(fn(jrunner.params, keys))
@@ -63,48 +86,148 @@ def _compare_throughput_mode(make_mgs, B, n_steps, seed):
                          device="cpu")
     assert runner.max_start == min(
         m.ts_length for m in runner.spec.log_order if m.ts_length) - 1
-    ours_starts = runner.draw_initial_steps(runner.make_keys(seed))
-    np.testing.assert_array_equal(ours_starts.numpy(), starts)
-    ours = runner.rollout_fn(
-        make_marginal_cost_policy(runner.spec), n_steps, auto_reset=True,
-        collect=False, randomize_initial_step=True,
-    )(runner.params, ours_starts)
+    keys = runner.make_keys(seed)
+    np.testing.assert_array_equal(runner.draw_initial_steps(keys).numpy(), starts)
+    n_gathers = len(gathers) if gathers is not None else 0
+    policy = make_marginal_cost_policy(runner.spec)
+    kw = dict(auto_reset=True, collect=False, randomize_initial_step=True)
+    ours = runner.rollout_fn(policy, n_steps, **kw)(runner.params, keys)
+    blocked = gathers is not None and len(gathers) > n_gathers
+    if blocked:
+        assert len(gathers) - n_gathers == n_steps // suite_module.BLOCK
+    per_step = runner.rollout_fn(policy, n_steps, block_prefetch=False, **kw)(runner.params,
+                                                                               keys)
+    assert torch.equal(ours, per_step)
     assert ours.shape == want.shape
     # rtol 1e-12: the per-step obs.sum(-1) is a reduction whose order is
     # framework-specific; everything else is bitwise
     np.testing.assert_allclose(ours.numpy(), want, rtol=1e-12)
-    return starts
+    return starts, blocked
 
 
 def test_suite_randomized_starts_match_jax():
     scenarios = (0, 1, 4, 22)
-    starts = _compare_throughput_mode(
+    starts, _ = _compare_throughput_mode(
         lambda pkg: [pkg.Microgrid.from_scenario(n) for n in scenarios],
         B=3, n_steps=24, seed=3,
     )
     assert len(np.unique(starts)) > 1
 
 
-def _short_series_mgs(pkg=pymgrid_tpu_torch, T=40, n_configs=1):
+def _short_series_mgs(pkg=pymgrid_tpu_torch, T=40, n_configs=1, ts_kwargs=None,
+                      forecaster=None):
+    """``n_configs`` microgrids on a ``T``-row series; ``ts_kwargs`` go to
+    each time-series module (e.g. ``final_step``, ``forecast_horizon``), or
+    per config when a list."""
     M = pkg.modules
     rng = np.random.RandomState(0)
+    per_config = ts_kwargs if isinstance(ts_kwargs, list) else [ts_kwargs or {}] * n_configs
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         return [pkg.Microgrid([
             M.BatteryModule(min_capacity=10, max_capacity=100, max_charge=50,
                             max_discharge=50, efficiency=0.9,
                             battery_cost_cycle=0.02, init_soc=0.5),
-            ("pv", M.RenewableModule(time_series=50 * rng.rand(T))),
-            M.LoadModule(time_series=60 * rng.rand(T)),
+            ("pv", M.RenewableModule(time_series=50 * rng.rand(T), **kw)),
+            M.LoadModule(time_series=60 * rng.rand(T), **kw),
             M.GridModule(max_import=100, max_export=100,
-                         time_series=rng.rand(T, 3)),
-        ]) for _ in range(n_configs)]
+                         time_series=rng.rand(T, 3), **kw),
+        ]) for kw in per_config]
 
 
-def test_suite_sequential_wrap_matches_jax():
+def _ending_at_max_start(horizon, forecaster="oracle"):
+    """Episodes that end at ``max_start - 1`` (``final_step = T - 1``), the
+    block-prefetch rollout's condition, with forecast windows of ``horizon``
+    rows (the step table holds ``T - 1 + horizon`` rows and more)."""
+    return dict(final_step=39, forecaster=forecaster, forecast_horizon=horizon)
+
+
+def test_suite_sequential_wrap_matches_jax(block_gathers):
     """A 40-step series: every replica auto-resets repeatedly through the
-    sequential wrap of the throughput mode."""
-    _compare_throughput_mode(_short_series_mgs, B=6, n_steps=160, seed=5)
+    sequential wrap of the throughput mode.  Its episodes end at ``T - 1 =
+    max_start``, past ``max_start - 1``, so the port runs its per-step
+    rollout."""
+    _, blocked = _compare_throughput_mode(_short_series_mgs, B=6, n_steps=160, seed=5,
+                                          gathers=block_gathers)
+    assert not blocked
+
+
+def test_block_prefetch_across_the_wrap_matches_jax(block_gathers):
+    """An eligible 40-step series (``final_step = T - 1``, horizons of 8, so
+    the table holds the 8 rows past ``max_start``), 6 replicas x 160 steps:
+    every replica wraps inside blocks and reads the patched rows.  The port
+    runs blocked (20 block gathers), bitwise equal to its per-step rollout,
+    and agrees with the JAX ``block_prefetch=True`` rollout at rtol 1e-12
+    (the checksum's framework-specific reduction)."""
+    make_mgs = lambda pkg: _short_series_mgs(pkg, ts_kwargs=_ending_at_max_start(8))  # noqa: E731
+    runner = SuiteRunner(make_mgs(pymgrid_tpu_torch), batch_per_config=6, dtype="float64",
+                         device="cpu")
+    assert runner.params["step_table"].shape[1] >= runner.max_start + suite_module.BLOCK
+    starts, blocked = _compare_throughput_mode(make_mgs, B=6, n_steps=160, seed=5,
+                                               jax_block_prefetch=True, gathers=block_gathers)
+    assert blocked
+    # the first wrap falls inside a block (not on its boundary) for most replicas
+    assert ((runner.max_start - starts) % suite_module.BLOCK != 0).sum() >= 3
+
+
+@pytest.mark.parametrize("case", ["short_horizon", "mixed_final_steps"])
+def test_block_prefetch_falls_back_where_jax_blocks_wrongly(case, block_gathers):
+    """Two series on which the JAX runner's eligibility test passes but its
+    blocked rollout reads the wrong rows: horizons of 2, so the table holds
+    fewer than ``max_start + 8`` rows and the window gathers clamp; and two
+    configs of which only one ends its episodes at ``max_start - 1`` (the
+    JAX test takes the minimum over all configs).  The port runs its
+    per-step rollout (no block gather) and equals the JAX
+    ``block_prefetch=False`` rollout; the JAX blocked result is not the
+    reference."""
+    if case == "short_horizon":
+        make_mgs = lambda pkg: _short_series_mgs(pkg, ts_kwargs=_ending_at_max_start(2))  # noqa: E731
+    else:
+        make_mgs = lambda pkg: _short_series_mgs(  # noqa: E731
+            pkg, n_configs=2,
+            ts_kwargs=[_ending_at_max_start(8), dict(forecaster="oracle", forecast_horizon=8)])
+    _, blocked = _compare_throughput_mode(make_mgs, B=6, n_steps=160, seed=5,
+                                          gathers=block_gathers)
+    assert not blocked and not block_gathers
+
+
+@pytest.mark.parametrize("forecaster", ["oracle", "gaussian"])
+def test_block_prefetch_equals_per_step(forecaster, block_gathers):
+    """The default (blocked) throughput rollout against ``block_prefetch=
+    False``, bitwise in float64: pymgrid25 scenarios 0 and 1, 4 replicas x
+    48 steps (6 block gathers), and an eligible short series with
+    threefry-gaussian forecasts, whose keys ride through both paths."""
+    if forecaster == "oracle":
+        mgs = [pymgrid_tpu_torch.Microgrid.from_scenario(n) for n in (0, 1)]
+    else:
+        mgs = _short_series_mgs(ts_kwargs=_ending_at_max_start(8, forecaster=0.1))
+    runner = SuiteRunner(mgs, batch_per_config=4, dtype="float64", device="cpu")
+    assert needs_keys(runner.spec) == (forecaster == "gaussian")
+    policy = make_marginal_cost_policy(runner.spec)
+    kw = dict(auto_reset=True, collect=False, randomize_initial_step=True)
+    keys = runner.make_keys(11)
+    blocked = runner.rollout_fn(policy, 48, **kw)(runner.params, keys)
+    assert len(block_gathers) == 48 // suite_module.BLOCK
+    per_step = runner.rollout_fn(policy, 48, block_prefetch=False, **kw)(runner.params, keys)
+    assert len(block_gathers) == 48 // suite_module.BLOCK
+    assert torch.isfinite(blocked).all() and torch.equal(blocked, per_step)
+    other = runner.rollout_fn(policy, 48, **kw)(runner.params, runner.make_keys(12))
+    assert not torch.equal(other, blocked)
+
+
+@pytest.mark.parametrize("mode", [
+    dict(collect=True, randomize_initial_step=True),
+    dict(randomize_initial_step=False),
+    dict(auto_reset=False, randomize_initial_step=True),
+])
+def test_block_prefetch_needs_the_sequential_wrap(mode):
+    """``block_prefetch=True`` outside the sequential-wrap throughput mode
+    raises, as the JAX runner does."""
+    runner = SuiteRunner(_short_series_mgs(), batch_per_config=2, dtype="float64",
+                         device="cpu")
+    with pytest.raises(ValueError, match="block_prefetch requires"):
+        runner.rollout_fn(make_marginal_cost_policy(runner.spec), 8, block_prefetch=True,
+                          **mode)
 
 
 @pytest.fixture(scope="module")
@@ -149,7 +272,7 @@ def test_suite_randomized_collect_resets():
     starts = runner.draw_initial_steps(keys)
     fn = runner.rollout_fn(policy, n_steps, auto_reset=True, collect=True,
                            randomize_initial_step=True)
-    _, outs = fn(runner.params, starts, keys)
+    _, outs = fn(runner.params, keys)
     rewards, dones = outs.reward[0].numpy(), outs.done[0].numpy()
 
     # replay the draws: the starts, then one draw per step from the split keys
@@ -179,22 +302,32 @@ def test_suite_randomized_collect_resets():
 
 
 def test_suite_drawing_rollout_needs_the_keys():
-    """A collect rollout with randomized restarts draws from the keys of
-    its starts: without them it raises instead of drawing from another
-    seed's chain; a throughput rollout needs none."""
+    """The rollout takes ``(params, keys)`` and draws its starts from the
+    keys: the old call with a ``(C, B)`` start tensor, and keys of any other
+    shape, raise a ``ValueError`` that names ``make_keys``.  Keys ride in the
+    state only where the rollout draws: a keyless throughput rollout's
+    policy sees no ``rng``, a collect rollout with randomized restarts'
+    does."""
     runner = SuiteRunner(_short_series_mgs(), batch_per_config=2, dtype="float64",
                          device="cpu")
     policy = make_marginal_cost_policy(runner.spec)
-    starts = runner.draw_initial_steps(runner.make_keys(5))
-    fn = runner.rollout_fn(policy, 3, auto_reset=True, collect=True,
-                           randomize_initial_step=True)
-    with pytest.raises(ValueError, match="make_keys"):
-        fn(runner.params, starts)
-    acc = runner.rollout_fn(policy, 3, auto_reset=True, collect=False,
-                            randomize_initial_step=True)(runner.params, starts)
-    assert acc.shape == (1, 2) and torch.isfinite(acc).all()
+    keys = runner.make_keys(5)
+    seen = []
 
+    def watching(params, state):
+        seen.append("rng" in state)
+        return policy(params, state)
 
+    for collect in (True, False):
+        fn = runner.rollout_fn(watching, 3, auto_reset=True, collect=collect,
+                               randomize_initial_step=True)
+        for wrong in (runner.draw_initial_steps(keys), keys[:, :1], keys[..., 0]):
+            with pytest.raises(ValueError, match="make_keys"):
+                fn(runner.params, wrong)
+        out = fn(runner.params, keys)
+        acc = out[0] if collect else out
+        assert acc.shape == (1, 2) and torch.isfinite(acc).all()
+    assert seen == [True] * 3 + [False] * 3
 def test_suite_randomized_collect_matches_jax():
     """A float64 collect rollout with randomized restarts, 2 configs x 4
     replicas of a 60-row series over 150 steps (every replica restarts at
@@ -216,7 +349,7 @@ def test_suite_randomized_collect_matches_jax():
     np.testing.assert_array_equal(starts.numpy(), _jax_starts(jrunner, jkeys))
     acc, outs = runner.rollout_fn(make_marginal_cost_policy(runner.spec), n_steps,
                                   auto_reset=True, collect=True,
-                                  randomize_initial_step=True)(runner.params, starts, keys)
+                                  randomize_initial_step=True)(runner.params, keys)
     dones = outs.done.numpy()
     assert (dones.sum(axis=-1) >= 2).all()  # every replica restarted inside the horizon
     np.testing.assert_array_equal(dones, np.asarray(jouts.done))
@@ -236,7 +369,7 @@ def test_suite_collect_matches_golden_all_scenarios():
     )
     fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), n_steps,
                            auto_reset=False, collect=True)
-    acc, outs = fn(runner.params, runner.fixed_initial_steps())
+    acc, outs = fn(runner.params, runner.make_keys(0))   # every start at initial_step
     assert outs.reward.shape == (25, 1, n_steps)
     assert outs.obs.shape == (25, 1, n_steps, runner.spec.obs_dim)
     assert outs.log_row.shape == (25, 1, n_steps, runner.spec.n_log_fields)
