@@ -95,7 +95,18 @@ which fails the run on error:
               8758 steps, held against ``docs/captures/scenario0_structure.log``
               (returns at rtol 1e-5, every other line identical).
 
-Phases 8-10 run before phase 7.  Every time printed carries the card's name
+11. speed    the speed tools through their entry points:
+              ``run_benchmarks --scaling-chip`` (25 configs x 256, 1024,
+              4096, 8192 and 20480 replicas x 200 steps, float32,
+              randomized starts; env-steps/s per batch, best of 3) and
+              ``--scaling`` (8 x 256 x 200, one ``--scaling-worker`` job per
+              world size the host's cards allow, NCCL; on one card world
+              size 1, its checksums ``torch.equal`` to the unmeshed
+              runner's) into a temporary directory, the report parsed back;
+              ``profile_env`` at its defaults (scenario 0, 2048 x 100: both
+              fused env rollouts and the suite rollout, finite).
+
+Phases 8-11 run before phase 7.  Every time printed carries the card's name
 and power limit.  The line before
 the last is the kernels' JSON record; the last line is the result JSON.
 """
@@ -1081,6 +1092,54 @@ def phase_structure(device, n_steps=8758, rtol=1e-5):
     return {"lines": lines, "returns": returns, "seconds": seconds, "max_rel": worst}
 
 
+def phase_speed_tools(device, out_dir, scaling_configs=8, scaling_replicas=256,
+                      scaling_steps=200, profile_batch=2048, profile_steps=100):
+    """The speed tools through their entry points: ``run_benchmarks
+    --scaling --scaling-chip`` into ``out_dir`` (the batch-size sweep over
+    the tool's ``CHIP_CONFIGS`` x ``CHIP_REPLICAS``; ``--scaling`` in
+    ``--scaling-worker`` subprocesses at the world sizes the host's cards
+    allow, NCCL on the card, its world-size-1 checksums ``torch.equal`` to
+    the unmeshed ``suite_throughput``'s from the same keys), every row
+    parsed back from the report; then ``profile_env`` (finite rollouts)."""
+    import re
+
+    import torch
+
+    from pymgrid_tpu_torch.tools import profile_env, run_benchmarks
+
+    t0 = time.perf_counter()
+    rank_rows, chip_rows, report = run_benchmarks.main(
+        ["--scaling", "--scaling-chip", "--device", str(device), "--out", str(out_dir),
+         "--scaling-configs", str(scaling_configs), "--scaling-replicas",
+         str(scaling_replicas), "--scaling-steps", str(scaling_steps)])
+    _check([r["replicas"] for r in chip_rows] == list(run_benchmarks.CHIP_REPLICAS)
+           and all(r["env_steps_per_sec"] > 0 for r in chip_rows),
+           f"speed/scaling-chip: rows {chip_rows}")
+    _check(rank_rows and rank_rows[0]["devices"] == 1, f"speed/scaling: rows {rank_rows}")
+    _, want = run_benchmarks.suite_throughput(scaling_configs, scaling_replicas,
+                                              scaling_steps, device, repeats=1)
+    got = torch.from_numpy(rank_rows[0]["checksums"])
+    _check(torch.equal(got, want.cpu()),
+           f"speed/scaling: world size 1 differs from the unmeshed runner, max abs diff "
+           f"{(got - want.cpu()).abs().max().item():.3e}")
+    table = report.read_text()
+    for row in rank_rows:
+        _check(re.search(rf"^\| {row['devices']} \| {row['env_steps_per_sec']:,.0f} \|",
+                         table, re.M) is not None, f"speed/scaling: report lacks {row}")
+    for row in chip_rows:
+        _check(f"| {row['total_envs']:,} | {row['env_steps_per_sec']:,.0f} |" in table,
+               f"speed/scaling-chip: report lacks {row}")
+    profiled = profile_env.main(["--device", str(device), "--batch", str(profile_batch),
+                                 "--steps", str(profile_steps)])
+    for label, _, out in profiled:
+        reward = out if torch.is_tensor(out) else out[1].reward
+        _check(bool(torch.isfinite(reward).all()), f"speed/profile_env: {label} not finite")
+    return {"rank_rows": rank_rows, "chip_rows": chip_rows,
+            "profile": [(label, wall, profile_batch * profile_steps / wall)
+                        for label, wall, _ in profiled],
+            "seconds": time.perf_counter() - t0}
+
+
 def phase_kernel_vs_plain(sweep, device, genset_batch=4096, genset_steps=8759):
     """The kernel against its plain PyTorch version, bitwise: at the
     main-path shape, on every pymgrid25 scenario (1024 x 64 steps) and on
@@ -1273,6 +1332,23 @@ def main():
     print(f"examples/scenario0_structure: 8758 steps, every return within "
           f"{st['max_rel']:.3e} of docs/captures/scenario0_structure.log, other lines "
           f"identical, in {st['seconds']:.2f} s {tag}", flush=True)
+
+    # ---- the speed tools: scaling table, batch sweep, env profile --------
+    with tempfile.TemporaryDirectory(prefix=".speed-", dir=REPO) as out_dir:
+        sp = phase_speed_tools(device, out_dir)
+    for row in sp["chip_rows"]:
+        print(f"speed/scaling-chip: 25 configs x {row['replicas']} replicas x 200 steps "
+              f"(batch {row['total_envs']}): {row['env_steps_per_sec']:.6g} env-steps/s "
+              f"{tag}", flush=True)
+    for row in sp["rank_rows"]:
+        print(f"speed/scaling: world size {row['devices']} over NCCL (worker subprocesses), "
+              f"8 x 256 x 200: {row['env_steps_per_sec']:.6g} env-steps/s {tag}", flush=True)
+    print("speed/scaling: world size 1 checksums torch.equal to the unmeshed runner; "
+          "report parsed back", flush=True)
+    for label, wall, rate in sp["profile"]:
+        print(f"speed/profile_env: scenario 0, 2048 x 100, {label}: {rate:.6g} env-steps/s "
+              f"({wall:.4f} s) {tag}", flush=True)
+    print(f"speed: phase in {sp['seconds']:.2f} s {tag}", flush=True)
 
     # ---- kernel against its plain version (launches not counted) ---------
     kvp = phase_kernel_vs_plain(sweep, device)

@@ -20,8 +20,6 @@ run, and ends it afterwards.
 Run: ``python -m pymgrid_tpu_torch.entry`` (one card), or
 ``torchrun --nproc-per-node N -m pymgrid_tpu_torch.entry``.
 """
-import socket
-
 import numpy as np
 import torch
 import torch.distributed as torch_dist
@@ -45,12 +43,6 @@ def entry(device="cuda"):
     compiled = CompiledMicrogrid(Microgrid.from_scenario(0), dtype="float32", device=device)
     step_fn = make_step_fn(compiled.spec, normalized=True)
     return step_fn, (compiled.params, compiled.reset(), compiled.zero_action())
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _reinforce_step(mesh, batch, n_steps, sigma=0.1, lr=1e-4):
@@ -100,7 +92,7 @@ def dryrun_multichip(n_devices, device="cuda"):
     what it printed as a dict."""
     own_group = False
     if not torch_dist.is_initialized() and n_devices == 1:
-        own_group = dist.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=device)
+        own_group = dist.initialize(f"127.0.0.1:{dist.free_port()}", 1, 0, device=device)
     try:
         mesh = make_batch_mesh(n_devices, device)
         batch, n_steps = 8 * n_devices, 16

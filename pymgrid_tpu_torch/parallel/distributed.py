@@ -25,6 +25,7 @@ size 1; a 2-rank job on the CPU runs over gloo.
 """
 import datetime
 import os
+import socket
 from typing import NamedTuple
 
 import numpy as np
@@ -42,6 +43,7 @@ __all__ = [
     "from_process_local",
     "fetch",
     "all_reduce_mean",
+    "free_port",
 ]
 
 
@@ -116,6 +118,14 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
         rank=process_id, **kwargs,
     )
     return True
+
+
+def free_port():
+    """A TCP port on ``127.0.0.1`` that is free now, for a one-host job's
+    coordinator."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def process_count():

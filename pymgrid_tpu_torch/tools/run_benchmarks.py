@@ -1,8 +1,7 @@
 #!/usr/bin/env python
 """Full-year control benchmarks over the pymgrid25 suite on the port.
 
-Port of the repository's ``tools/run_benchmarks.py``, every mode but its
-``--scaling`` speed modes (those belong to a benchmark of the port).  Modes:
+Port of the repository's ``tools/run_benchmarks.py``, every mode.  Modes:
 
 * default: rule-based control (``RuleBasedControl.run_compiled``, float64)
   over each scenario's 8759 steps, and with ``--mpc`` the host MPC (numpy +
@@ -17,21 +16,35 @@ Port of the repository's ``tools/run_benchmarks.py``, every mode but its
   (ROADMAP.md, queue C, JAX fault 5);
 * ``--saa``: ``BatchedSAA`` per scenario and forecast-accuracy preset, with
   ``np.random.seed(1000 + n)`` before each, as the JAX tool -> ``RESULTS_SAA.md``
-  (:mod:`pymgrid_tpu_torch.tools.saa_report`).
+  (:mod:`pymgrid_tpu_torch.tools.saa_report`);
+* ``--scaling``: the suite's throughput (float32, randomized starts, the
+  marginal-cost policy, best of 3) with its configs sharded over N ranks of
+  one ``torch.distributed`` job, a fresh job of ``--scaling-worker`` ranks
+  per point: gloo at N = 1, 2, 4, 8 with ``--device cpu`` (each rank
+  ``os.cpu_count() // N`` threads), NCCL with one card per rank at the N
+  the host's cards allow -> ``RESULTS_SCALING.md``;
+* ``--scaling-chip``: the same rollout over all 25 scenarios in one process
+  as the replicas per scenario grow (256 to 20480) -> ``RESULTS_SCALING.md``,
+  keeping the other mode's section of the report in ``--out``.
 
 The planners run in float32 on the card, RBC in float64 on the card; the
 card is the default device and ``--device cpu`` takes the CPU (where the JAX
 tool ran RBC and host MPC).  Reports and the config-stamped resume sidecars
 go to ``--out``, by default ``pymgrid_tpu_torch/build/results/``; the
 repository's own ``RESULTS*.md`` are only read, for the host-MPC anchor of
-the Δ column.
+the Δ column (its ``RESULTS_SCALING.md``, a record of TPU runs, not even
+that).
 
 Usage: python -m pymgrid_tpu_torch.tools.run_benchmarks [--mpc] [--scenarios 0,1,2]
 """
 import argparse
 import json
+import os
 import re
+import subprocess
 import sys
+import tempfile
+import textwrap
 import time
 import warnings
 from pathlib import Path
@@ -42,7 +55,13 @@ from pymgrid_tpu_torch._device import resolve_device
 from pymgrid_tpu_torch.tools.saa_report import REPO, RESULTS_DIR, write_report
 
 __all__ = ["main", "run_rbc", "run_mpc_suite", "run_mpc_chip", "run_saa",
-           "write_rbc_report", "parse_args"]
+           "write_rbc_report", "parse_args", "suite_throughput", "scaling_worker",
+           "run_scaling", "write_scaling_report"]
+
+SCALING_WORLD_SIZES = (1, 2, 4, 8)         # --scaling's points (ranks per job)
+CHIP_CONFIGS = 25                          # --scaling-chip: every pymgrid25 scenario
+CHIP_REPLICAS = (256, 1024, 4096, 8192, 20480)
+SCALING_TIMEOUT_S = 900                    # one --scaling job, from spawn to exit
 
 
 def parse_args(argv=None):
@@ -98,6 +117,19 @@ def parse_args(argv=None):
     parser.add_argument("--mpc-suite", action="store_true",
                         help="the full-year MPC table on the card as ONE batch "
                              "over all scenarios (SuiteMPC) -> RESULTS_CHIP.md")
+    parser.add_argument("--scaling", action="store_true",
+                        help="suite env-steps/s with the configs sharded over "
+                             "1/2/4/8 ranks (gloo on the CPU; NCCL, one card "
+                             "per rank, as many as the host has), a fresh job "
+                             "per point -> RESULTS_SCALING.md")
+    parser.add_argument("--scaling-chip", action="store_true",
+                        help="batch-size sweep of the suite throughput on the "
+                             "device; updates RESULTS_SCALING.md in --out")
+    parser.add_argument("--scaling-worker", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--scaling-configs", type=int, default=8)
+    parser.add_argument("--scaling-replicas", type=int, default=256)
+    parser.add_argument("--scaling-steps", type=int, default=200)
     return parser.parse_args(argv)
 
 
@@ -105,6 +137,10 @@ def main(argv=None):
     args = parse_args(argv)
     resolve_device(args.device)        # no card: fail before any work
     args.out.mkdir(parents=True, exist_ok=True)
+    if args.scaling_worker is not None:
+        return scaling_worker(args)
+    if args.scaling or args.scaling_chip:
+        return run_scaling(args)
     if args.saa:
         return run_saa(args)
     if args.mpc_chip:
@@ -205,6 +241,301 @@ def _device_name(device):
     if device.type == "cuda":
         return f"the card ({torch.cuda.get_device_name(device)})"
     return "the CPU"
+
+
+def suite_throughput(n_configs, replicas, n_steps, device="cuda", mesh=None, repeats=3,
+                     seed=0):
+    """Best-of-``repeats`` wall clock of the suite rollout over the first
+    ``n_configs`` pymgrid25 scenarios x ``replicas``: float32, the
+    marginal-cost policy, auto-reset, randomized per-replica starts drawn
+    from ``make_keys(seed)`` (the block-prefetch path when ``n_steps`` is a
+    multiple of 8).  Returns ``(env_steps_per_sec, out)``, ``out`` the last
+    run's ``(C, B)`` checksums on the device (this rank's rows with a
+    ``mesh``).
+
+    After one untimed run, each run is timed from a device synchronize to
+    its checksums on the host, so no work can be skipped.  With a ``mesh``
+    the ranks start each run together and a run lasts until its slowest
+    rank is done."""
+    from pymgrid_tpu_torch import Microgrid
+    from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
+    from pymgrid_tpu_torch.parallel import SuiteRunner
+    from pymgrid_tpu_torch.utils.profiling import _sync
+
+    mgs = [Microgrid.from_scenario(n) for n in range(n_configs)]
+    runner = SuiteRunner(mgs, batch_per_config=replicas, dtype="float32", device=device,
+                         mesh=mesh)
+    # honest mode: distinct per-replica starts, so no replica repeats
+    # another's work
+    fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), n_steps, auto_reset=True,
+                           collect=False, randomize_initial_step=True)
+    keys = runner.make_keys(seed=seed)
+
+    fn(runner.params, keys).cpu()
+    seconds = []
+    for _ in range(repeats):
+        _all_ranks_max(mesh, [0.0])            # the ranks start together
+        _sync(runner.device)
+        t0 = time.perf_counter()
+        out = fn(runner.params, keys)
+        out.cpu()
+        _sync(runner.device)
+        seconds.append(time.perf_counter() - t0)
+    return n_configs * replicas * n_steps / min(_all_ranks_max(mesh, seconds)), out
+
+
+def _all_ranks_max(mesh, values):
+    """``values`` (floats) maxed elementwise over the mesh's ranks; as they
+    are without a process group."""
+    import torch
+    import torch.distributed as torch_dist
+
+    if mesh is None or not torch_dist.is_initialized():
+        return values
+    t = torch.tensor(values, dtype=torch.float64, device=mesh.device)
+    torch_dist.all_reduce(t, op=torch_dist.ReduceOp.MAX)
+    return t.tolist()
+
+
+def _threads_per_rank(n):
+    return max(1, (os.cpu_count() or 1) // n)
+
+
+def scaling_worker(args):
+    """One rank of a ``--scaling`` job of ``--scaling-worker N`` ranks (its
+    coordinator, rank and world size in ``MASTER_ADDR``, ``MASTER_PORT``,
+    ``RANK``, ``WORLD_SIZE``): joins the job, measures
+    :func:`suite_throughput` with the configs sharded over the ranks, and
+    gathers the checksums.  Rank 0 writes them to ``--out`` as
+    ``scaling-N.npy`` and prints one JSON line, ``{"devices": N,
+    "env_steps_per_sec": ...}``.  Returns ``(env_steps_per_sec, checksums)``."""
+    import torch
+    import torch.distributed as torch_dist
+
+    from pymgrid_tpu_torch.parallel import distributed as dist
+
+    n, rank = args.scaling_worker, int(os.environ["RANK"])
+    if resolve_device(args.device).type == "cpu":
+        torch.set_num_threads(_threads_per_rank(n))
+    dist.initialize(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}", n, rank,
+                    device=args.device)
+    try:
+        mesh = dist.global_batch_mesh(args.device)
+        sps, out = suite_throughput(args.scaling_configs, args.scaling_replicas,
+                                    args.scaling_steps, mesh=mesh)
+        checksums = dist.fetch(out)
+    finally:
+        torch_dist.destroy_process_group()
+    if rank == 0:
+        np.save(args.out / f"scaling-{n}.npy", checksums)
+        print(json.dumps({"devices": n, "env_steps_per_sec": sps}), flush=True)
+    return sps, checksums
+
+
+def _run_ranks(jobs, timeout):
+    """Run one process per ``(cmd, env)`` of ``jobs`` and wait for all of
+    them, ``timeout`` seconds in all; returns each one's stdout.  When one
+    fails, or the time runs out, every process still running is killed and
+    ``RuntimeError`` names the failed (or first unfinished) process with
+    the tail of its stderr."""
+    files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")) for _ in jobs]
+    procs = []
+    try:
+        for (cmd, env), (out, err) in zip(jobs, files):
+            procs.append(subprocess.Popen(cmd, env=env, stdout=out, stderr=err, text=True))
+        deadline = time.monotonic() + timeout
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = next((i for i, code in enumerate(codes) if code), None)
+            if failed is not None:
+                why = f"exited with code {codes[failed]}"
+                break
+            if all(code == 0 for code in codes):
+                return [_read(out) for out, _ in files]
+            if time.monotonic() > deadline:
+                failed, why = codes.index(None), f"did not finish within {timeout} s"
+                break
+            time.sleep(0.1)
+        raise RuntimeError(f"process {failed} of {len(jobs)} {why}:\n"
+                           f"{_read(files[failed][1])[-2000:]}")
+    finally:
+        _kill(procs)
+        for out, err in files:
+            out.close()
+            err.close()
+
+
+def _read(f):
+    f.seek(0)
+    return f.read()
+
+
+def _kill(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _scaling_job(n, args):
+    """One ``--scaling`` point: a job of ``n`` ranks of ``--scaling-worker
+    n`` on ``127.0.0.1`` and a free port.  Returns rank 0's JSON row, with
+    the gathered checksums under ``"checksums"``."""
+    from pymgrid_tpu_torch.parallel.distributed import free_port
+
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": str(n),
+           "PYTHONPATH": os.pathsep.join(filter(None, [str(REPO),
+                                                       os.environ.get("PYTHONPATH")]))}
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "pymgrid_tpu_torch.tools.run_benchmarks",
+               "--scaling-worker", str(n), "--device", args.device, "--out", tmp,
+               "--scaling-configs", str(args.scaling_configs),
+               "--scaling-replicas", str(args.scaling_replicas),
+               "--scaling-steps", str(args.scaling_steps)]
+        stdout = _run_ranks([(cmd, {**env, "RANK": str(r)}) for r in range(n)],
+                            SCALING_TIMEOUT_S)
+        row = json.loads(stdout[0].strip().splitlines()[-1])
+        row["checksums"] = np.load(Path(tmp) / f"scaling-{n}.npy")
+    return row
+
+
+def _world_sizes(device):
+    """The points of ``--scaling``: every one of :data:`SCALING_WORLD_SIZES`
+    on the CPU; on CUDA those the host's cards hold, one rank per card
+    (NCCL cannot put two ranks on one card)."""
+    import torch
+
+    if device.type == "cpu":
+        return SCALING_WORLD_SIZES
+    return tuple(n for n in SCALING_WORLD_SIZES if n <= torch.cuda.device_count())
+
+
+def run_scaling(args):
+    """``--scaling`` and ``--scaling-chip`` -> ``RESULTS_SCALING.md`` in
+    ``--out``.
+
+    ``--scaling``: :func:`suite_throughput` (``--scaling-configs`` x
+    ``--scaling-replicas`` x ``--scaling-steps``) sharded over the ranks of
+    one job per world size, a fresh job each (:func:`scaling_worker`).
+    ``--scaling-chip``: the same rollout over all 25 scenarios in this
+    process at each of :data:`CHIP_REPLICAS` replicas per scenario.
+    Returns ``(rank_rows, chip_rows, report path)``."""
+    device = resolve_device(args.device)
+    rank_rows, chip_rows = [], []
+    if args.scaling:
+        for n in _world_sizes(device):
+            row = _scaling_job(n, args)
+            rank_rows.append(row)
+            print(f"{n} ranks: {row['env_steps_per_sec']:,.0f} env-steps/s", flush=True)
+    if args.scaling_chip:
+        for replicas in CHIP_REPLICAS:
+            sps, _ = suite_throughput(CHIP_CONFIGS, replicas, args.scaling_steps, device)
+            chip_rows.append({"replicas": replicas, "total_envs": CHIP_CONFIGS * replicas,
+                              "env_steps_per_sec": sps})
+            print(f"batch {CHIP_CONFIGS * replicas}: {sps:,.0f} env-steps/s", flush=True)
+    out = write_scaling_report(args.out / "RESULTS_SCALING.md", rank_rows, chip_rows, args)
+    print(f"wrote {out}")
+    return rank_rows, chip_rows, out
+
+
+def _card_label(device):
+    """``name, power limit`` of a CUDA ``device`` as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[device.index or 0]
+
+
+def _wrap(text):
+    return textwrap.fill(text, width=72, break_on_hyphens=False)
+
+
+def write_scaling_report(out, rank_rows, chip_rows, args):
+    """The scaling report at ``out``, with the JAX tool's tables.  A section
+    this run did not measure is kept from ``out`` itself, never from the
+    repository's ``RESULTS_SCALING.md`` (a record of TPU runs)."""
+    import torch
+
+    out = Path(out)
+    old = out.read_text() if out.exists() else ""
+    device = resolve_device(args.device)
+    cores = os.cpu_count()
+
+    def section(title, body):
+        return f"## {title}\n\n{body}\n"
+
+    def kept(title):
+        m = re.search(rf"## {title}.*?(?=## |\Z)", old, re.S)
+        return m.group(0) if m else ""
+
+    if rank_rows:
+        base = rank_rows[0]["env_steps_per_sec"]
+        sizes = ", ".join(str(row["devices"]) for row in rank_rows)
+        if device.type == "cpu":
+            threads = ", ".join(str(_threads_per_rank(row["devices"])) for row in rank_rows)
+            where = (
+                "over gloo on the CPU, each rank with "
+                f"`torch.set_num_threads(os.cpu_count() // N)` threads ({threads}).  "
+                "Validates the sharded rollout at every size; absolute CPU "
+                f"throughput is bounded by the {cores} physical cores of this host, "
+                "so ideal scaling is NOT expected here — the card's table carries "
+                "the perf claim."
+            )
+        else:
+            where = (
+                f"over NCCL, one card per rank ({_card_label(device)}).  World sizes "
+                f"{sizes} of {', '.join(map(str, SCALING_WORLD_SIZES))} ran: NCCL puts "
+                f"one rank on each card, and this host has {torch.cuda.device_count()}."
+            )
+        lines = [
+            _wrap(f"Suite program ({args.scaling_configs} configs x "
+                  f"{args.scaling_replicas} replicas x {args.scaling_steps} steps, f32) "
+                  "with its configs sharded over the N ranks (devices) of one "
+                  "`torch.distributed` job (`--scaling-worker N`, a fresh job per "
+                  f"point), {where}"),
+            "",
+            "| devices | env-steps/s | vs 1 device |",
+            "|---|---|---|",
+        ]
+        for row in rank_rows:
+            lines.append(
+                f"| {row['devices']} | {row['env_steps_per_sec']:,.0f} | "
+                f"{row['env_steps_per_sec'] / base:.2f}x |"
+            )
+        rank_md = section("Multi-process scaling", "\n".join(lines))
+    else:
+        rank_md = kept("Multi-process")
+
+    if chip_rows:
+        on = (f"ONE card ({_card_label(device)})" if device.type == "cuda"
+              else f"the CPU ({cores} cores)")
+        lines = [
+            _wrap(f"Suite throughput on {on} as the env batch grows "
+                  f"({args.scaling_steps} steps, f32, {CHIP_CONFIGS} configs, HONEST mode "
+                  "— randomized per-replica starts, so no replica repeats another's "
+                  "work; best of 3 runs, each to its checksums on the host):"),
+            "",
+            "| total envs | env-steps/s/chip |",
+            "|---|---|",
+        ]
+        for row in chip_rows:
+            lines.append(
+                f"| {row['total_envs']:,} | {row['env_steps_per_sec']:,.0f} |"
+            )
+        chip_md = section("Batch-size sweep", "\n".join(lines))
+    else:
+        chip_md = kept("Batch-size")
+
+    out.write_text(
+        "# RESULTS — scaling evidence (pymgrid_tpu_torch)\n\n"
+        "Multi-process scaling and the batch-size sweep of the one-batch pymgrid25\n"
+        "suite rollout (`pymgrid_tpu_torch/parallel/suite.py`), written by\n"
+        "`python -m pymgrid_tpu_torch.tools.run_benchmarks --scaling --scaling-chip`.\n\n"
+        + rank_md + "\n" + chip_md
+    )
+    return out
 
 
 def _load_sidecar(sidecar, config, resume, mark):

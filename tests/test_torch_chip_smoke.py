@@ -144,6 +144,28 @@ def test_structure_phase_cpu():
     assert out["max_rel"] == 0.0 and len(out["lines"]) == 13
 
 
+def test_speed_tools_phase_cpu(tmp_path, monkeypatch):
+    """The speed phase at tiny sizes: the sweep over 2 configs x (2, 4)
+    replicas, ``--scaling`` at world size 1 in a worker subprocess over
+    gloo (its checksums equal to the unmeshed runner's), both parsed back
+    from the report, and ``profile_env``."""
+    from pymgrid_tpu_torch.tools import run_benchmarks
+
+    monkeypatch.setattr(run_benchmarks, "SCALING_WORLD_SIZES", (1,))
+    monkeypatch.setattr(run_benchmarks, "CHIP_CONFIGS", 2)
+    monkeypatch.setattr(run_benchmarks, "CHIP_REPLICAS", (2, 4))
+    out = chip_smoke.phase_speed_tools("cpu", tmp_path, scaling_configs=2,
+                                       scaling_replicas=2, scaling_steps=8,
+                                       profile_batch=4, profile_steps=8)
+    assert [r["total_envs"] for r in out["chip_rows"]] == [4, 8]
+    assert [r["devices"] for r in out["rank_rows"]] == [1]
+    assert [p[0] for p in out["profile"]] == [
+        "fused rollout keep_obs=True", "fused rollout keep_obs=False",
+        "suite rollout (obs checksummed)"]
+    assert all(rate > 0 for _, _, rate in out["profile"])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["RESULTS_SCALING.md"]
+
+
 def test_main_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:

@@ -4,6 +4,8 @@ ports to ``pymgrid_tpu_torch`` with a package rename alone."""
 import importlib
 import inspect
 import pkgutil
+import re
+from pathlib import Path
 
 import pytest
 
@@ -195,6 +197,17 @@ NOT_PORTED = {
 }
 
 
+# (JAX program, flag): why the port's twin of the program has no such flag
+_PLATFORM_SWITCH = ("JAX's platform switch; the twin's --device takes its place "
+                    "(the card by default, cpu on request)")
+NOT_PORTED_FLAGS = {
+    ("tools/profile_env.py", "--tpu"): _PLATFORM_SWITCH,
+    ("examples/scenario0_structure.py", "--cpu"): _PLATFORM_SWITCH,
+    ("examples/train_rl.py", "--cpu"): _PLATFORM_SWITCH,
+    ("examples/train_es.py", "--cpu"): _PLATFORM_SWITCH,
+}
+
+
 def _port_path(name):
     parts = name.split(".")
     return ".".join(["pymgrid_tpu_torch"] + [MODULE_RENAMES.get(p, p) for p in parts[1:]])
@@ -262,3 +275,24 @@ def test_port_takes_every_parameter_of_the_jax_package():
     unexplained = {k: v for k, v in gaps.items() if k not in NOT_PORTED}
     assert not unexplained, unexplained
     assert set(NOT_PORTED) <= set(gaps), set(NOT_PORTED) - set(gaps)
+
+
+def _flags(path):
+    return set(re.findall(r'add_argument\(\s*"(--[\w-]+)"', path.read_text()))
+
+
+def test_program_twins_take_every_flag_of_the_jax_programs():
+    """Every program of the repository's ``tools/`` and ``examples/`` that has
+    a twin in the port (same file name) takes each flag of the JAX program;
+    ``NOT_PORTED_FLAGS`` lists the exceptions, each with its reason, and
+    holds no entry that is no longer a gap."""
+    repo = Path(__file__).resolve().parents[1]
+    gaps, twins = set(), []
+    for folder in ("tools", "examples"):
+        for program in sorted((repo / folder).glob("*.py")):
+            twin = repo / "pymgrid_tpu_torch" / folder / program.name
+            if twin.exists():
+                twins.append(f"{folder}/{program.name}")
+                gaps |= {(twins[-1], flag) for flag in _flags(program) - _flags(twin)}
+    assert {"tools/run_benchmarks.py", "tools/profile_env.py"} <= set(twins)
+    assert gaps == set(NOT_PORTED_FLAGS), gaps ^ set(NOT_PORTED_FLAGS)
