@@ -105,8 +105,17 @@ which fails the run on error:
               runner's) into a temporary directory, the report parsed back;
               ``profile_env`` at its defaults (scenario 0, 2048 x 100: both
               fused env rollouts and the suite rollout, finite).
+12. bench     ``pymgrid_tpu_torch.tools.bench``, the twin of ``bench.py``,
+              through its entry point at ``bench.py``'s defaults: the suite
+              (25 x 20480 x 1000, best of 3), the RL paths (65536 x 100), the
+              kernel against the engine sweep (131072 x 2000; the kernel's
+              launches join the kernels line's count) and the collect rollout
+              (25 x 1024 x 100), JAX's int32 starts; its one JSON line parsed
+              back, every rate finite and above 0, printed with the card; the
+              collect step's device events with int32 restarts beside phase
+              8's int64 ones.
 
-Phases 8-11 run before phase 7.  Every time printed carries the card's name
+Phases 8-12 run before phase 7.  Every time printed carries the card's name
 and power limit.  The line before
 the last is the kernels' JSON record; the last line is the result JSON.
 """
@@ -171,20 +180,14 @@ def card_info():
 
 
 def sweep_inputs(scenario, batch, device):
-    """Scenario spec/params (f32) and an init-charge sweep over
-    [min_capacity, max_capacity]; replica 0 starts at the config's own
-    initial charge."""
-    import torch
+    """Scenario spec/params (f32) and the ``bench.py`` twin's init-charge
+    sweep over [min_capacity, max_capacity], but replica 0 starts at the
+    config's own initial charge."""
+    from pymgrid_tpu_torch.tools.bench import kernel_sweep_inputs
 
-    from pymgrid_tpu_torch import Microgrid
-    from pymgrid_tpu_torch.core.spec import extract_spec
-
-    spec, params, _ = extract_spec(Microgrid.from_scenario(scenario), dtype=np.float32)
-    pb = params["battery"]
-    init = np.linspace(float(pb["min_capacity"][0]), float(pb["max_capacity"][0]),
-                       batch, dtype=np.float32)
-    init[0] = pb["init_charge"][0]
-    return spec, params, torch.as_tensor(init, device=device)
+    spec, params, init = kernel_sweep_inputs(batch, device, scenario)
+    init[0] = float(params["battery"]["init_charge"][0])
+    return spec, params, init
 
 
 def phase_build():
@@ -981,7 +984,6 @@ def phase_suite_collect(device, n_configs=25, replicas=1024, n_steps=20, seed=0,
     from pymgrid_tpu_torch import Microgrid
     from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
     from pymgrid_tpu_torch.parallel import SuiteRunner
-    from pymgrid_tpu_torch.utils.profiling import device_summary, trace
 
     def runner_on(dev):
         mgs = [Microgrid.from_scenario(n) for n in range(n_configs)]
@@ -1004,14 +1006,29 @@ def phase_suite_collect(device, n_configs=25, replicas=1024, n_steps=20, seed=0,
            "steps_per_s": n_configs * replicas * n_steps / seconds}
     if trace_dir is not None:
         for name, randomize in (("keyed", True), ("fixed", False)):
-            counts = []
-            for k, steps in enumerate(profile_steps):
-                with trace(str(Path(trace_dir) / f"{name}{k}"), device) as prof:
-                    rollout(runner, steps, randomize)
-                counts.append(device_summary(prof)["kernels"])
-            out[f"events_per_step_{name}"] = (
-                (counts[1] - counts[0]) / (profile_steps[1] - profile_steps[0]))
+            out[f"events_per_step_{name}"] = collect_events_per_step(
+                runner, device, Path(trace_dir) / name, randomize, profile_steps, seed)
     return out
+
+
+def collect_events_per_step(runner, device, trace_dir, randomize=True, profile_steps=(4, 8),
+                            seed=0):
+    """Device events per step of ``runner``'s collect rollout (auto-reset,
+    randomized restarts with ``randomize``) under ``torch.profiler``: the
+    difference of two rollouts of ``profile_steps`` steps, each from
+    ``make_keys(seed)``, so the reset cancels."""
+    from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
+    from pymgrid_tpu_torch.utils.profiling import device_summary, trace
+
+    counts = []
+    for k, steps in enumerate(profile_steps):
+        with trace(f"{trace_dir}{k}", device) as prof:
+            fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), steps,
+                                   auto_reset=True, collect=True,
+                                   randomize_initial_step=randomize)
+            fn(runner.params, runner.make_keys(seed))
+        counts.append(device_summary(prof)["kernels"])
+    return (counts[1] - counts[0]) / (profile_steps[1] - profile_steps[0])
 
 
 def phase_tables_rbc(device, out_dir, scenario=0, n_steps=None):
@@ -1138,6 +1155,65 @@ def phase_speed_tools(device, out_dir, scaling_configs=8, scaling_replicas=256,
             "profile": [(label, wall, profile_batch * profile_steps / wall)
                         for label, wall, _ in profiled],
             "seconds": time.perf_counter() - t0}
+
+
+def phase_bench(device, knobs=None, trace_dir=None, collect_configs=25,
+                collect_replicas=1024, profile_steps=(4, 8)):
+    """The ``bench.py`` twin (``pymgrid_tpu_torch.tools.bench``) through its
+    entry point, at ``bench.py``'s defaults unless ``knobs`` (``PYMGRID_BENCH_*``
+    values) say otherwise: its one JSON line parsed back, every rate finite
+    and above 0, the RBC kernel's launches in the run counted (each
+    ``make_rbc_rollout`` the run makes is recorded).  With ``trace_dir``, the
+    device events per step of the suite's collect rollout with int32
+    restarts (``collect_configs`` x ``collect_replicas``, as
+    :func:`phase_suite_collect`'s keyed count, which draws int64)."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from pymgrid_tpu_torch import Microgrid, ops
+    from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
+    from pymgrid_tpu_torch.parallel import SuiteRunner
+    from pymgrid_tpu_torch.tools import bench
+
+    def bench_knobs():
+        return {k: v for k, v in os.environ.items() if k.startswith("PYMGRID_BENCH_")}
+
+    made, make = [], ops.make_rbc_rollout
+    saved, stdout = bench_knobs(), io.StringIO()
+    ops.make_rbc_rollout = lambda *a, **kw: made.append(make(*a, **kw)) or made[-1]
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(knobs or {})
+    try:
+        with contextlib.redirect_stdout(stdout):
+            result, seconds = _timed(lambda: bench.main(["--device", str(device)]), device)
+    finally:
+        ops.make_rbc_rollout = make
+        for k in bench_knobs():
+            del os.environ[k]
+        os.environ.update(saved)
+    line = stdout.getvalue().strip().splitlines()[-1]
+    _check(json.loads(line) == result, f"bench: the printed line is not the result: {line}")
+    rates = {k: v for k, v in result.items() if k == "value" or k.endswith("_per_sec")}
+    _check(len(rates) == 7 and all(np.isfinite(v) and v > 0 for v in rates.values()),
+           f"bench: rates {rates}")
+    launches = sum(r.launches for r in made)
+    _check(torch.device(device).type == "cpu" or launches > 0,
+           "bench: the kernel sweep launched no rbc_rollout kernel")
+    out = {"line": line, "result": result, "seconds": seconds, "kernel_launches": launches}
+    if trace_dir is not None:
+        runner = SuiteRunner([Microgrid.from_scenario(n) for n in range(collect_configs)],
+                             batch_per_config=collect_replicas, dtype="float32",
+                             device=device, start_dtype=torch.int32)
+        runner.rollout_fn(make_marginal_cost_policy(runner.spec), 1, auto_reset=True,
+                          collect=True, randomize_initial_step=True)(
+            runner.params, runner.make_keys(0))             # first launches, not counted
+        out["collect_events_per_step_int32"] = collect_events_per_step(
+            runner, device, Path(trace_dir) / "int32", True, profile_steps)
+    return out
 
 
 def phase_kernel_vs_plain(sweep, device, genset_batch=4096, genset_steps=8759):
@@ -1349,6 +1425,24 @@ def main():
         print(f"speed/profile_env: scenario 0, 2048 x 100, {label}: {rate:.6g} env-steps/s "
               f"({wall:.4f} s) {tag}", flush=True)
     print(f"speed: phase in {sp['seconds']:.2f} s {tag}", flush=True)
+
+    # ---- the bench.py twin, its kernel launches counted ------------------
+    with tempfile.TemporaryDirectory(prefix=".bench-trace-", dir=REPO) as trace_dir:
+        bn = phase_bench(device, trace_dir=trace_dir)
+    print(f"bench/line: {bn['line']}", flush=True)
+    r = bn["result"]
+    print(f"bench: suite {r['n_configs']} x {r['replicas_per_config']} x {r['n_steps']} "
+          f"{r['value']:.6g} env-steps/s (best of 3, {r['wall_s']} s); rl env step() loop "
+          f"{r['rl_env_steps_per_sec']:.6g}, fused {r['rl_fused_steps_per_sec']:.6g}, "
+          f"continuous {r['continuous_env_steps_per_sec']:.6g}; kernel sweep "
+          f"{r['kernel_steps_per_sec']:.6g} ({bn['kernel_launches']} rbc_rollout launches), "
+          f"engine sweep {r['engine_sweep_steps_per_sec']:.6g}; collect "
+          f"{r['collect_steps_per_sec']:.6g} env-steps/s; phase in {bn['seconds']:.2f} s "
+          f"{tag}", flush=True)
+    print(f"bench: collect step with int32 restarts {bn['collect_events_per_step_int32']:.1f} "
+          f"device events per step (int64 restarts: {sc['events_per_step_keyed']:.1f} in "
+          f"keys/suite_collect above, 1,424 in earlier runs) {tag}", flush=True)
+    launches += bn["kernel_launches"]
 
     # ---- kernel against its plain version (launches not counted) ---------
     kvp = phase_kernel_vs_plain(sweep, device)

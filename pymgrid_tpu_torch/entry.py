@@ -10,7 +10,8 @@
                            ``all_reduce``), then a meshed ``BatchedDiscreteEnv``
                            rollout with its ``shared_step=True`` twin held
                            bitwise against it, then a meshed ``SuiteRunner``
-                           per-step rollout.
+                           block-prefetch rollout from JAX's int32 starts
+                           (the JAX dryrun runs without x64).
 
 One process drives one device: ``n`` is the job's world size.  Outside a job
 (no process group), ``dryrun_multichip(1)`` starts a one-process group of its
@@ -115,9 +116,11 @@ def dryrun_multichip(n_devices, device="cuda"):
                                "per-replica-step rollout")
 
         # the suite rollout (blocked: 16 steps are two blocks) with configs
-        # sharded over the job
+        # sharded over the job; JAX's int32 starts, as the JAX dryrun runs
+        # without jax_enable_x64
         runner = SuiteRunner([Microgrid.from_scenario(s) for s in range(n_devices)],
-                             batch_per_config=4, dtype="float32", mesh=mesh)
+                             batch_per_config=4, dtype="float32", mesh=mesh,
+                             start_dtype=torch.int32)
         fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), n_steps,
                                auto_reset=True, collect=False, randomize_initial_step=True)
         acc = dist.fetch(fn(runner.params, runner.make_keys(0)))

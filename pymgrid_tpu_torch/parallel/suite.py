@@ -11,9 +11,12 @@ params stack along a leading config axis and the engine steps ``(C, B)`` = confi
 runner's ``make_keys``) and draws the starts from them, as the JAX runner
 does: with randomized starts each replica's
 ``randint(fold_in(key, 0x51A7), (), initial_step, max_start)``
-(:meth:`SuiteRunner.draw_initial_steps`; the draw under ``jax_enable_x64``,
-as the JAX package's tests and float64 tools run it), else every config's
-``initial_step``.  Rollouts that draw (threefry-gaussian forecasts,
+(:meth:`SuiteRunner.draw_initial_steps`), else every config's
+``initial_step``.  JAX draws with its default ``int``: int64 under
+``jax_enable_x64`` (the JAX package's tests and float64 tools) and int32
+without it (``bench.py``, ``run_benchmarks --scaling``, the multichip
+dryrun); the runner's ``start_dtype`` names which of the two it draws.
+Rollouts that draw (threefry-gaussian forecasts,
 collect-mode randomized restarts) carry the keys as the state's ``rng``,
 which every step splits as the JAX engine does, and a restart draws from the
 replica's own split key.  Collected outputs come back as ``(C, B, T, ...)``.
@@ -201,9 +204,18 @@ class SuiteRunner:
     over its mesh: this rank holds its share of the configs' params on the
     mesh's device, ``rollout_fn``'s function takes every config's keys and
     returns this rank's ``(C / world, B)`` rows, which
-    :func:`~pymgrid_tpu_torch.parallel.distributed.fetch` assembles."""
+    :func:`~pymgrid_tpu_torch.parallel.distributed.fetch` assembles.
 
-    def __init__(self, microgrids, batch_per_config, dtype, device="cuda", mesh=None):
+    ``start_dtype`` is the integer width of the randomized start and restart
+    draws: ``torch.int64`` (default) draws JAX's starts under
+    ``jax_enable_x64``, ``torch.int32`` JAX's starts without x64; the twin
+    of a JAX program takes the width that program runs in."""
+
+    def __init__(self, microgrids, batch_per_config, dtype, device="cuda", mesh=None,
+                 start_dtype=torch.int64):
+        if start_dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"start_dtype is torch.int32 or torch.int64, got {start_dtype}")
+        self.start_dtype = start_dtype
         self.n_configs = len(microgrids)
         self.mesh = mesh
         self.device, _, self._configs = local_layout(mesh, self.n_configs, device)
@@ -233,21 +245,22 @@ class SuiteRunner:
     def _draw(self, initial_step, keys):
         """``randint(fold_in(key, 0x51A7), (), initial_step, max_start)`` per
         key of ``keys (C, B, 2)``, ``initial_step (C,)``: int32 ``(C, B)``.
-        The draw is JAX's default-``int`` one under ``jax_enable_x64``
-        (int64: two 64-bit draws per value), which the JAX package's tests
-        and float64 tools run with."""
+        The draw is JAX's default-``int`` one in the width ``start_dtype``
+        names: ``torch.int64`` is JAX's draw under ``jax_enable_x64`` (two
+        64-bit draws per value), ``torch.int32`` its draw without x64 (two
+        32-bit draws); the two give different starts."""
         low = initial_step.to(torch.int64).unsqueeze(1)
         starts = prng.randint(prng.fold_in(keys, 0x51A7), (), low, self.max_start,
-                              torch.int64)
+                              self.start_dtype)
         return starts.to(torch.int32)
 
     def draw_initial_steps(self, keys):
         """``(C, B)`` int32 randomized starts drawn from every config's keys
         ``(C, B, 2)`` (:meth:`make_keys`), uniform in ``[initial_step,
-        max_start)`` per config, as the JAX runner draws them; on the
-        runner's device.  ``C`` is every config, also with a mesh: each rank
-        draws the same starts, whatever the world size.  ``rollout_fn``'s
-        randomized rollouts start here."""
+        max_start)`` per config, as the JAX runner draws them in the width
+        ``start_dtype`` names; on the runner's device.  ``C`` is every
+        config, also with a mesh: each rank draws the same starts, whatever
+        the world size.  ``rollout_fn``'s randomized rollouts start here."""
         return self._draw(self._initial_step, keys.to(self.device))
 
     def make_keys(self, seed=0):

@@ -244,43 +244,41 @@ def _device_name(device):
 
 
 def suite_throughput(n_configs, replicas, n_steps, device="cuda", mesh=None, repeats=3,
-                     seed=0):
+                     seed=0, mark=None):
     """Best-of-``repeats`` wall clock of the suite rollout over the first
     ``n_configs`` pymgrid25 scenarios x ``replicas``: float32, the
     marginal-cost policy, auto-reset, randomized per-replica starts drawn
-    from ``make_keys(seed)`` (the block-prefetch path when ``n_steps`` is a
-    multiple of 8).  Returns ``(env_steps_per_sec, out)``, ``out`` the last
-    run's ``(C, B)`` checksums on the device (this rank's rows with a
-    ``mesh``).
+    from ``make_keys(seed)`` in JAX's int32 draw (the JAX tool's
+    ``--scaling`` modes run without ``jax_enable_x64``), the block-prefetch
+    path when ``n_steps`` is a multiple of 8: ``bench.build_suite_rollout``.
+    Returns ``(env_steps_per_sec, out)``, ``out`` the last run's ``(C, B)``
+    checksums on the device (this rank's rows with a ``mesh``).
 
     After one untimed run, each run is timed from a device synchronize to
     its checksums on the host, so no work can be skipped.  With a ``mesh``
     the ranks start each run together and a run lasts until its slowest
-    rank is done."""
-    from pymgrid_tpu_torch import Microgrid
-    from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
-    from pymgrid_tpu_torch.parallel import SuiteRunner
+    rank is done.  ``mark(message)``, when given, hears of the untimed run's
+    end and of each timed run's seconds."""
+    from pymgrid_tpu_torch.tools.bench import build_suite_rollout
     from pymgrid_tpu_torch.utils.profiling import _sync
 
-    mgs = [Microgrid.from_scenario(n) for n in range(n_configs)]
-    runner = SuiteRunner(mgs, batch_per_config=replicas, dtype="float32", device=device,
-                         mesh=mesh)
-    # honest mode: distinct per-replica starts, so no replica repeats
-    # another's work
-    fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), n_steps, auto_reset=True,
-                           collect=False, randomize_initial_step=True)
-    keys = runner.make_keys(seed=seed)
-
-    fn(runner.params, keys).cpu()
+    device = resolve_device(device if mesh is None else mesh.device)
+    fn, params, keys = build_suite_rollout(n_configs, replicas, n_steps, "float32", device,
+                                           mesh, seed)
+    fn(params, keys).cpu()
+    if mark is not None:
+        mark("untimed run done; timing")
     seconds = []
-    for _ in range(repeats):
+    for r in range(repeats):
         _all_ranks_max(mesh, [0.0])            # the ranks start together
-        _sync(runner.device)
+        _sync(device)
         t0 = time.perf_counter()
-        out = fn(runner.params, keys)
+        out = fn(params, keys)
         out.cpu()
-        _sync(runner.device)
+        _sync(device)
         seconds.append(time.perf_counter() - t0)
+        if mark is not None:
+            mark(f"repeat {r}: {seconds[-1]:.2f}s")
     return n_configs * replicas * n_steps / min(_all_ranks_max(mesh, seconds)), out
 
 

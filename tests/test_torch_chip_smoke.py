@@ -166,6 +166,30 @@ def test_speed_tools_phase_cpu(tmp_path, monkeypatch):
     assert sorted(p.name for p in tmp_path.iterdir()) == ["RESULTS_SCALING.md"]
 
 
+def test_bench_phase_cpu(tmp_path, monkeypatch):
+    """The bench phase at ``tests/test_bench_smoke.py``'s tiny knobs: the
+    twin's line parsed back with every rate above 0, an outside
+    ``PYMGRID_BENCH_*`` value neither read nor lost, no kernel launched on
+    the CPU, and the int32 collect step's device events (0 on the CPU)."""
+    import importlib.util
+    import json
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_smoke_knobs", Path(__file__).parent / "test_bench_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setenv("PYMGRID_BENCH_SKIP_EXTRAS", "1")
+    out = chip_smoke.phase_bench("cpu", knobs=smoke.TINY, trace_dir=tmp_path,
+                                 collect_configs=2, collect_replicas=4)
+    assert os.environ["PYMGRID_BENCH_SKIP_EXTRAS"] == "1"
+    assert not set(smoke.TINY) & set(os.environ)
+    result = json.loads(out["line"])
+    assert result == out["result"] and result["total_envs"] == 8
+    assert result["kernel_steps_per_sec"] > 0 and result["collect_steps_per_sec"] > 0
+    assert out["kernel_launches"] == 0 and out["collect_events_per_step_int32"] == 0
+
+
 def test_main_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:

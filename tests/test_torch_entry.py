@@ -39,6 +39,49 @@ def test_dryrun_multichip_over_gloo():
     assert dryrun_multichip(1, device="cpu") == result     # seeded: repeatable
 
 
+def _recorded(monkeypatch, runner_cls, calls):
+    """Record ``(runner, keys, output)`` of every suite rollout a
+    ``runner_cls`` runs."""
+    rollout_fn = runner_cls.rollout_fn
+
+    def recorded(self, *args, **kwargs):
+        fn = rollout_fn(self, *args, **kwargs)
+
+        def run(params, keys):
+            calls.append((self, keys, fn(params, keys)))
+            return calls[-1][2]
+
+        return run
+
+    monkeypatch.setattr(runner_cls, "rollout_fn", recorded)
+
+
+def test_dryrun_suite_draws_the_jax_dryruns_starts(monkeypatch):
+    """The dryrun's meshed suite (scenario 0, 4 replicas x 16 steps, the
+    block-prefetch path) starts where ``__graft_entry__.dryrun_multichip``'s
+    suite starts without ``jax_enable_x64`` (JAX's int32 draw), bitwise, and
+    its mean equals the JAX suite's at rtol 1e-5 (float32)."""
+    from pymgrid_tpu.parallel.suite import SuiteRunner as JaxSuiteRunner
+    from pymgrid_tpu_torch.parallel import SuiteRunner
+
+    jax_calls, calls = [], []
+    _recorded(monkeypatch, JaxSuiteRunner, jax_calls)
+    _recorded(monkeypatch, SuiteRunner, calls)
+    with jax.enable_x64(False):
+        jax_entry.dryrun_multichip(1)
+        (jrunner, jkeys, jacc), = jax_calls
+        max_start = min(m.ts_length for m in jrunner.spec.log_order if m.ts_length) - 1
+        want = np.array([[int(jax.random.randint(jax.random.fold_in(k, 0x51A7), (), 0,
+                                                 max_start)) for k in jkeys[0]]])
+        assert np.asarray(jrunner.params["initial_step"]).tolist() == [0]
+    result = dryrun_multichip(1, device="cpu")
+    (runner, keys, acc), = calls
+    assert runner.start_dtype == torch.int32 and acc.shape == (1, 4)
+    np.testing.assert_array_equal(runner.draw_initial_steps(keys).numpy(), want)
+    np.testing.assert_allclose(result["suite_mean"], float(np.asarray(jacc).mean()), rtol=1e-5)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(jacc), rtol=1e-5)
+
+
 def test_dryrun_needs_one_process_per_device():
     with pytest.raises(ValueError, match="one process drives one device"):
         dryrun_multichip(2, device="cpu")

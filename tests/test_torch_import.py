@@ -40,7 +40,8 @@ for name in ("pymgrid_tpu_torch.parallel.batch", "pymgrid_tpu_torch.parallel.bat
              "pymgrid_tpu_torch.examples.scenario0_structure", "pymgrid_tpu_torch.tools",
              "pymgrid_tpu_torch.tools.run_benchmarks",
              "pymgrid_tpu_torch.tools.run_legacy_benchmarks",
-             "pymgrid_tpu_torch.tools.saa_report", "pymgrid_tpu_torch.tools.profile_env"):
+             "pymgrid_tpu_torch.tools.saa_report", "pymgrid_tpu_torch.tools.profile_env",
+             "pymgrid_tpu_torch.tools.bench"):
     assert name in names, name
 
 from pymgrid_tpu_torch import Microgrid

@@ -1,9 +1,10 @@
 """The port's speed tools against the JAX originals (CPU, float32).
 
 * ``pymgrid_tpu_torch.tools.run_benchmarks.suite_throughput`` against the
-  JAX tool's ``_suite_throughput`` (3 configs x 4 replicas x 16 steps): the
-  same rollout arguments, starts bitwise, the ``(C, B)`` checksums within
-  rtol 1e-5, the port's block-prefetch path run;
+  JAX tool's ``_suite_throughput`` (3 configs x 4 replicas x 16 steps) as
+  its ``--scaling`` modes run it, without ``jax_enable_x64``: the same
+  rollout arguments, JAX's int32 starts bitwise, the ``(C, B)`` checksums
+  within rtol 1e-5, the port's block-prefetch path run;
 * ``--scaling``: a 2-rank gloo job of ``--scaling-worker`` whose gathered
   checksums equal the single-process run bitwise and whose rank 0 prints the
   JAX worker's JSON keys; ``run_scaling`` at world sizes ``(1, 2)`` writing
@@ -65,6 +66,8 @@ def _record_rollouts(monkeypatch, runner_cls, calls):
 
 
 def _jax_starts(runner, keys):
+    """The starts JAX's runner draws from ``keys`` in JAX's current mode
+    (its default int: int32 without x64)."""
     import jax
 
     max_start = min(m.ts_length for m in runner.spec.log_order if m.ts_length) - 1
@@ -76,6 +79,11 @@ def _jax_starts(runner, keys):
 
 
 def test_suite_throughput_matches_the_jax_tool(monkeypatch):
+    """The JAX tool's ``--scaling``, ``--scaling-chip`` and
+    ``--scaling-worker`` modes return before it sets ``jax_enable_x64``, so
+    its suite draws int32 starts: the JAX side runs with x64 off."""
+    import jax
+
     from pymgrid_tpu.parallel.suite import SuiteRunner as JaxSuiteRunner
 
     jax_tool = _load("tools/run_benchmarks.py", "run_benchmarks_jax_speed")
@@ -87,7 +95,8 @@ def test_suite_throughput_matches_the_jax_tool(monkeypatch):
                         lambda table, steps: gathers.append(1) or gather(table, steps))
 
     C, B, T = 3, 4, 16
-    assert jax_tool._suite_throughput(C, B, T, repeats=1) > 0
+    with jax.enable_x64(False):
+        assert jax_tool._suite_throughput(C, B, T, repeats=1) > 0
     sps, out = run_benchmarks.suite_throughput(C, B, T, device="cpu", repeats=2)
     assert sps > 0 and out.shape == (C, B) and out.dtype == torch.float32
 
@@ -99,8 +108,10 @@ def test_suite_throughput_matches_the_jax_tool(monkeypatch):
     assert len(gathers) == 3 * T // suite_module.BLOCK  # the block-prefetch path ran
     assert torch.equal(out, outs[-1])
     keys = runner.make_keys(0)
-    np.testing.assert_array_equal(runner.draw_initial_steps(keys).numpy(),
-                                  _jax_starts(jrunner, jrunner.make_keys(seed=0)))
+    with jax.enable_x64(False):
+        want = _jax_starts(jrunner, jrunner.make_keys(seed=0))
+    assert runner.start_dtype == torch.int32
+    np.testing.assert_array_equal(runner.draw_initial_steps(keys).numpy(), want)
     np.testing.assert_allclose(out.numpy(), np.asarray(jouts[-1]), rtol=1e-5)
 
 

@@ -259,6 +259,88 @@ def test_draw_initial_steps_match_jax(seed, runner_pairs):
                                       _jax_starts(jrunner, jrunner.make_keys(seed)))
 
 
+@pytest.fixture(scope="module")
+def int32_runners(runner_pairs):
+    """A port runner with ``start_dtype=torch.int32`` beside each JAX runner
+    of :func:`runner_pairs`."""
+    return [(jrunner, SuiteRunner(make_mgs(pymgrid_tpu_torch), batch_per_config=B,
+                                  dtype="float64", device="cpu", start_dtype=torch.int32))
+            for (jrunner, _), (make_mgs, B) in zip(runner_pairs, (
+                (lambda pkg: [pkg.Microgrid.from_scenario(n) for n in range(25)], 3),
+                (_short_series_mgs, 50)))]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 2**31 - 1])
+def test_int32_starts_match_jax_without_x64(seed, int32_runners):
+    """``start_dtype=torch.int32``: the JAX runner's starts without
+    ``jax_enable_x64`` (JAX's default int is then int32), bitwise, and not
+    the x64 ones."""
+    for jrunner, runner in int32_runners:
+        starts = runner.draw_initial_steps(runner.make_keys(seed))
+        assert starts.dtype == torch.int32
+        with jax.enable_x64(False):
+            want = _jax_starts(jrunner, jrunner.make_keys(seed))
+        np.testing.assert_array_equal(starts.numpy(), want)
+        assert not np.array_equal(want, _jax_starts(jrunner, jrunner.make_keys(seed)))
+
+
+@pytest.mark.parametrize("start_dtype, want", [
+    (torch.int32, [8422, 6244, 3381, 576, 2808, 1489, 5688, 5674]),
+    (torch.int64, [4700, 2917, 7526, 6473, 1818, 2334, 3092, 8176]),
+])
+def test_start_width_draws(start_dtype, want):
+    """Scenario 0 (starts in [0, 8759)), 8 replicas from ``make_keys(0)``:
+    JAX's draws without and with ``jax_enable_x64``, as ``jax.random`` gives
+    them."""
+    runner = SuiteRunner([pymgrid_tpu_torch.Microgrid.from_scenario(0)], batch_per_config=8,
+                         dtype="float32", device="cpu", start_dtype=start_dtype)
+    assert runner.max_start == 8759
+    assert runner.draw_initial_steps(runner.make_keys(0)).tolist() == [want]
+
+
+def test_start_dtype_is_an_integer_width():
+    with pytest.raises(ValueError, match="start_dtype"):
+        SuiteRunner(_short_series_mgs(), batch_per_config=2, dtype="float32", device="cpu",
+                    start_dtype=torch.float32)
+
+
+def test_int32_collect_restarts_match_jax_without_x64():
+    """A float32 collect rollout with randomized restarts and
+    ``start_dtype=torch.int32``, 2 configs x 4 replicas of a 60-row series
+    over 150 steps, against the JAX ``SuiteRunner`` without x64: the starts
+    and the dones bitwise (every restart drawn as JAX draws it), rewards and
+    observations at rtol 1e-5 (float32); the int64 draw restarts
+    elsewhere."""
+    B, n_steps, seed = 4, 150, 11
+    make_mgs = lambda pkg: _short_series_mgs(pkg, T=60, n_configs=2)  # noqa: E731
+    with jax.enable_x64(False):
+        jrunner = JaxSuiteRunner(make_mgs(pymgrid_tpu), batch_per_config=B, dtype=np.float32)
+        jfn = jrunner.rollout_fn(jax_mc_policy(jrunner.spec), n_steps, auto_reset=True,
+                                 collect=True, randomize_initial_step=True)
+        jkeys = jrunner.make_keys(seed=seed)
+        jacc, jouts = jfn(jrunner.params, jkeys)
+        want_starts = _jax_starts(jrunner, jkeys)
+
+    def run(start_dtype):
+        runner = SuiteRunner(make_mgs(pymgrid_tpu_torch), batch_per_config=B,
+                             dtype="float32", device="cpu", start_dtype=start_dtype)
+        keys = runner.make_keys(seed)
+        fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), n_steps,
+                               auto_reset=True, collect=True, randomize_initial_step=True)
+        return runner.draw_initial_steps(keys), fn(runner.params, keys)
+
+    starts, (acc, outs) = run(torch.int32)
+    np.testing.assert_array_equal(starts.numpy(), want_starts)
+    dones = outs.done.numpy()
+    assert (dones.sum(axis=-1) >= 2).all()  # every replica restarted inside the horizon
+    np.testing.assert_array_equal(dones, np.asarray(jouts.done))
+    np.testing.assert_allclose(outs.reward.numpy(), np.asarray(jouts.reward), rtol=1e-5)
+    np.testing.assert_allclose(outs.obs.numpy(), np.asarray(jouts.obs), rtol=1e-5)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(jacc), rtol=1e-5)
+    _, (_, outs64) = run(torch.int64)
+    assert not np.array_equal(outs64.done.numpy(), dones)
+
+
 def test_suite_randomized_collect_resets():
     """collect=True with randomized auto-resets: each finished replica
     restarts at the start drawn from its split key (the step's new ``rng``,
