@@ -68,12 +68,17 @@ which fails the run on error:
               scenario 1 (4096 replicas x 128-step rollouts, MLP 64-64,
               entropy 0.02): one iteration with fed actions held against the
               CPU float32 iteration at rtol 1e-4 (loss, updated parameters),
-              5 sampled iterations timed (finite history), one more under
-              ``torch.profiler`` (device events, busy time, idle share);
-              continuous ES on scenario 0 (population 256, hidden 32, depth
-              cut to 1000 of the year's 8758 steps): the population's returns
-              at a fixed theta held against the CPU float32 run, 2
-              generations timed; ``entry.dryrun_multichip(1)`` over NCCL.
+              the first sampled iteration of a seed-0 run (JAX's threefry
+              draws) against the CPU's (actions equal but at near ties, then
+              loss and mean return at rtol 1e-4), 5 sampled iterations timed
+              (finite history), one more under ``torch.profiler`` (device
+              events, busy time, idle share); continuous ES on scenario 0
+              (population 256, hidden 32, depth cut to 1000 of the year's
+              8758 steps): the population's returns at a fixed theta held
+              against the CPU float32 run, ``theta0`` and the first
+              generation's noise within 1e-6 of the CPU's, 2
+              generations timed; ``entry.dryrun_multichip(1)`` over NCCL,
+              its loss and mean return against the CPU's at rtol 1e-5.
 7. kernels    the kernel against its plain PyTorch version on the card,
               bitwise (``torch.equal``): at the main-path shape, on all 25
               scenarios at 1024 x 64 (each scenario's kernel variant printed)
@@ -835,19 +840,56 @@ def _a2c_step_fed(run, actions, device):
     return loss.item(), torch.cat([p.detach().reshape(-1) for p in theta.parameters()]).cpu()
 
 
+def _a2c_step_sampled(run, seed=0):
+    """The first iteration of ``run(seed=seed)`` from the seed-0 weights,
+    its actions drawn from JAX's keys (``categorical`` of the keys folded
+    with iteration 0), each draw recorded with its margin: the gap between
+    its two best ``logits + gumbel``, over ``max(1, |best|)``.  Returns the
+    loss, the mean return, and the ``(T, B)`` actions and margins (on the
+    CPU)."""
+    import torch
+
+    from pymgrid_tpu_torch.core import prng
+
+    drawn, categorical = [], prng.categorical
+
+    def recorded(keys, logits):
+        top = (prng.gumbel(keys, logits.shape[-1:], logits.dtype) + logits).topk(2).values
+        drawn.append((categorical(keys, logits),
+                      (top[:, 0] - top[:, 1]) / top[:, 0].abs().clamp_min(1.0)))
+        return drawn[-1][0]
+
+    theta = run.init_theta(seed=0)
+    adam = torch.optim.Adam(theta.parameters(), lr=run.lr)
+    keys = prng.fold_in(run.rollout_keys(seed), 0)
+    prng.categorical = recorded
+    try:
+        *_, loss, mean_ret = run.train_step(theta, adam, *run.init_envs(seed), keys=keys)
+    finally:
+        prng.categorical = categorical
+    actions, margins = (torch.stack(x).cpu() for x in zip(*drawn))
+    return loss.item(), mean_ret.item(), actions, margins
+
+
 def phase_a2c(device, scenario=1, batch=4096, rollout_len=128, iters=5, entropy_coef=0.02,
-              rtol=1e-4, trace_dir=None):
+              rtol=1e-4, tie=1e-5, trace_dir=None):
     """A2C (``pymgrid_tpu_torch.examples.train_rl``) at the published width:
     one iteration with fed actions (``RandomState(0)``) equal to the same
     iteration on the CPU in float32 at ``rtol`` (loss and updated
-    parameters; an entry near 0 to ``rtol`` of the Adam step), then
-    ``iters`` sampled iterations timed (the history finite).  With
+    parameters; an entry near 0 to ``rtol`` of the Adam step); the first
+    sampled iteration of a seed-0 run (JAX's threefry draws) against the
+    same iteration on the CPU: every action equal but where the CPU's draw
+    is a near tie (relative margin at most ``tie``: the logits differ by
+    the fed-action gap), and with no such flip the loss and mean return at
+    ``rtol``; then ``iters`` sampled iterations timed (the history
+    finite).  With
     ``trace_dir`` one more sampled iteration runs under
     ``utils.profiling.trace``: device events and busy time per iteration,
     and the idle share against the profiled wall time and against the
     unprofiled iteration time (the profiler slows the host side)."""
     import torch
 
+    from pymgrid_tpu_torch.core import prng
     from pymgrid_tpu_torch.examples.train_rl import build_training
     from pymgrid_tpu_torch.utils.profiling import Throughput, device_summary, trace
 
@@ -863,20 +905,34 @@ def phase_a2c(device, scenario=1, batch=4096, rollout_len=128, iters=5, entropy_
     _check(torch.allclose(params, ref_params, rtol=rtol, atol=rtol * run.lr),
            f"A2C fed-action parameters vs CPU: max abs diff {params_err:.3e}")
 
+    s_loss, s_ret, s_actions, _ = _a2c_step_sampled(run)
+    ref = _a2c_step_sampled(build_training(device="cpu", **kw))
+    flips = s_actions != ref[2]
+    flip_margin = float(ref[3][flips].max()) if flips.any() else 0.0
+    _check(flip_margin <= tie, f"A2C sampled iteration: {int(flips.sum())} actions differ from "
+                               f"the CPU's, at a relative margin up to {flip_margin:.3e} > {tie}")
+    sampled_rel = max(abs(s_loss - ref[0]) / abs(ref[0]), abs(s_ret - ref[1]) / abs(ref[1]))
+    _check(flips.any() or sampled_rel <= rtol,
+           f"A2C sampled iteration vs CPU: loss {s_loss} / {ref[0]}, mean return {s_ret} / "
+           f"{ref[1]}: rel {sampled_rel:.3e} > {rtol}")
+
     with Throughput(batch, rollout_len * iters, device) as meter:
         theta, _, history = run(iters=iters, log_every=iters)
     _check(len(history) == iters and bool(np.isfinite(history).all()),
            f"A2C history not finite: {history}")
     out = {"loss_rel_vs_cpu": loss_rel, "params_max_abs_vs_cpu": params_err,
-           "seconds": meter.elapsed, "steps_per_s": meter.steps_per_sec,
+           "sampled_rel_vs_cpu": sampled_rel, "sampled_flips": int(flips.sum()),
+           "sampled_draws": flips.numel(),
+           "sampled_min_margin": float(ref[3].min()), "sampled_loss": s_loss,
+           "rtol": rtol, "tie": tie, "seconds": meter.elapsed, "steps_per_s": meter.steps_per_sec,
            "ms_per_iter": meter.elapsed / iters * 1e3, "history": history}
     if trace_dir is not None:
         adam = torch.optim.Adam(theta.parameters(), lr=run.lr)
-        states, obs = run.init_envs()
-        generator = run.generator(seed=1)
+        states, obs = run.init_envs(seed=1)
+        keys = prng.fold_in(run.rollout_keys(seed=1), 0)
         with trace(str(trace_dir), device) as prof:
             t0 = time.perf_counter()
-            run.train_step(theta, adam, states, obs, generator=generator)
+            run.train_step(theta, adam, states, obs, keys=keys)
             _sync(device)
             wall = time.perf_counter() - t0
         summary = device_summary(prof)
@@ -887,13 +943,19 @@ def phase_a2c(device, scenario=1, batch=4096, rollout_len=128, iters=5, entropy_
     return out
 
 
-def phase_es(device, scenario=0, pop=256, hidden=32, n_steps=1000, gens=2, rtol=1e-5):
+def phase_es(device, scenario=0, pop=256, hidden=32, n_steps=1000, gens=2, rtol=1e-5,
+             draw_atol=1e-6):
     """Continuous ES (``pymgrid_tpu_torch.examples.train_es``) at the
     published width with the depth cut to ``n_steps``: the population's
     returns at a fixed theta and noise (``RandomState(0)``) equal the CPU
     float32 run at ``rtol`` (measured on the H100: 2.4e-7; the MLPs' sums
-    run in other orders on the two devices); then ``gens`` generations
-    timed."""
+    run in other orders on the two devices); a seed-0 run's draws on the
+    card, ``theta0`` and the first generation's noise (JAX's threefry
+    normals), within ``draw_atol`` of the CPU's (the tolerance
+    ``tests/test_torch_prng.py`` holds float32 normals to against JAX's:
+    ``log1p`` may differ in the last bit, and ``erfinv`` grows it in the
+    tails); then ``gens`` generations timed."""
+    from pymgrid_tpu_torch.core import prng
     from pymgrid_tpu_torch.examples.train_es import build_es
     from pymgrid_tpu_torch.utils.profiling import Throughput
 
@@ -909,23 +971,39 @@ def phase_es(device, scenario=0, pop=256, hidden=32, n_steps=1000, gens=2, rtol=
     _check(np.isfinite(got).all() and rel <= rtol,
            f"ES population returns vs CPU float32: max rel {rel:.3e} > {rtol}")
 
+    cpu_run = build_es(device="cpu", **kw)
+    draws_err = 0.0
+    for what, draw in (("theta0", lambda r, d: r.initial_theta(0)),
+                       ("first noise", lambda r, d: r.noise(prng.fold_in(prng.key(0, d), 1000)))):
+        x, want = draw(run, device).cpu(), draw(cpu_run, "cpu")
+        err = float((x - want).abs().max())
+        draws_err = max(draws_err, err)
+        _check(x.shape == want.shape and err <= draw_atol,
+               f"ES {what} on the card vs CPU: max abs diff {err:.3e} > {draw_atol}")
+
     with Throughput(pop, n_steps * gens, device) as meter:
         _, history = run(gens=gens, log_every=gens)
     _check(len(history) == gens and bool(np.isfinite(history).all()),
            f"ES history not finite: {history}")
-    return {"max_rel_vs_cpu": rel, "seconds": meter.elapsed,
+    return {"max_rel_vs_cpu": rel, "draws_max_abs_vs_cpu": draws_err, "draw_atol": draw_atol,
+            "seconds": meter.elapsed,
             "steps_per_s": meter.steps_per_sec, "history": history,
             "rbc": run.rbc_baseline()}
 
 
-def phase_dryrun(device):
+def phase_dryrun(device, rtol=1e-5):
     """``entry.dryrun_multichip(1)``: the data-parallel REINFORCE step, the
     meshed env rollouts and the meshed suite over a one-process group (NCCL
-    on the card)."""
+    on the card); its loss and mean return, drawn from JAX's keys, equal
+    the same call on the CPU (gloo) at ``rtol``."""
     from pymgrid_tpu_torch.entry import dryrun_multichip
 
     result, seconds = _timed(lambda: dryrun_multichip(1, device=device), device)
-    return {**result, "seconds": seconds}
+    ref = dryrun_multichip(1, device="cpu")
+    rel = max(abs(result[k] - ref[k]) / abs(ref[k]) for k in ("loss", "mean_return"))
+    _check(rel <= rtol, f"dryrun loss / mean return {result['loss']} / {result['mean_return']} "
+                        f"vs CPU {ref['loss']} / {ref['mean_return']}: rel {rel:.3e} > {rtol}")
+    return {**result, "seconds": seconds, "rel_vs_cpu": rel, "rtol": rtol}
 
 
 def phase_random_policy(device, batch=65536, scenario=0, seed=0):
@@ -1367,6 +1445,12 @@ def main():
           f"history {json.dumps([round(h, 6) for h in a2c['history']])}; fed-action iteration "
           f"vs CPU float32: loss rel {a2c['loss_rel_vs_cpu']:.3e}, parameters max abs diff "
           f"{a2c['params_max_abs_vs_cpu']:.3e} {tag}", flush=True)
+    print(f"training/a2c sampled: first iteration of a seed-0 run (JAX's threefry draws) vs "
+          f"the CPU: {a2c['sampled_flips']} of {a2c['sampled_draws']} actions differ (allowed "
+          f"only at a near tie, relative margin <= {a2c['tie']}; smallest margin on the CPU "
+          f"{a2c['sampled_min_margin']:.3e}); loss {a2c['sampled_loss']:.4f}, loss and mean "
+          f"return max rel {a2c['sampled_rel_vs_cpu']:.3e} (rtol {a2c['rtol']}) {tag}",
+          flush=True)
     print(f"training/a2c profile: one iteration under torch.profiler {a2c['profiled_ms']:.2f} ms, "
           f"{a2c['device_events']} device events, busy {a2c['busy_ms']:.2f} ms, idle share "
           f"{a2c['idle_share']:.4f} (against the unprofiled {a2c['ms_per_iter']:.2f} ms: "
@@ -1376,9 +1460,13 @@ def main():
           f"2 generations in {es['seconds']:.4f} s, {es['steps_per_s']:.6g} env-steps/s; "
           f"best-of-pop {es['history']} vs RBC {es['rbc']:.2f}; population returns vs CPU "
           f"float32 max rel {es['max_rel_vs_cpu']:.3e} {tag}", flush=True)
+    print(f"training/es draws: theta0 and the first generation's noise on the card vs the "
+          f"CPU: max abs diff {es['draws_max_abs_vs_cpu']:.3e} (tolerance {es['draw_atol']}) "
+          f"{tag}", flush=True)
     dry = phase_dryrun(device)
     print(f"training/dryrun_multichip(1) over NCCL: loss {dry['loss']:.4f}, mean return "
-          f"{dry['mean_return']:.4f}, in {dry['seconds']:.2f} s {tag}", flush=True)
+          f"{dry['mean_return']:.4f}, in {dry['seconds']:.2f} s; max rel vs the CPU (gloo) "
+          f"{dry['rel_vs_cpu']:.3e} (rtol {dry['rtol']}) {tag}", flush=True)
 
     # ---- JAX's draws: the random policy, key-drawn suite restarts --------
     rp = phase_random_policy(device)

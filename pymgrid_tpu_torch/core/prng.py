@@ -1,10 +1,11 @@
 """Threefry-2x32 random numbers that equal ``jax.random``'s.
 
-The part of ``jax.random`` the engine uses (``PRNGKey``, ``split``,
-``fold_in``, the raw ``bits``, ``uniform``, ``randint`` and ``normal``) in
-plain tensor ops, so the port draws the same gaussian forecast noise,
-random-policy actions and randomized suite starts as the JAX package for the
-same seed, on any device.
+The part of ``jax.random`` the engine and the training programs use
+(``PRNGKey``, ``split``, ``fold_in``, the raw ``bits``, ``uniform``,
+``randint``, ``normal``, ``gumbel`` and ``categorical``) in plain tensor ops,
+so the port draws the same gaussian forecast noise, random-policy actions,
+randomized suite starts, initial weights, exploration noise and sampled
+actions as the JAX package for the same seed, on any device.
 
 A key is an int64 tensor ``(..., 2)`` holding two uint32 words, as
 ``jax.random.PRNGKey`` returns them (the raw, non-typed key).  Every function
@@ -31,8 +32,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["key", "split", "fold_in", "bits", "uniform", "randint", "normal", "erfinv",
-           "threefry2x32"]
+__all__ = ["key", "split", "fold_in", "bits", "uniform", "randint", "normal", "gumbel",
+           "categorical", "erfinv", "threefry2x32"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -182,6 +183,23 @@ def normal(key, shape, dtype):
     u = uniform(key, shape, dtype, lo, np.array(1.0, npd))
     sqrt2 = torch.as_tensor(np.array(np.sqrt(2), npd), device=key.device)
     return sqrt2 * erfinv(u)
+
+
+def gumbel(key, shape, dtype):
+    """``jax.random.gumbel`` (its default ``mode="low"``):
+    ``-log(-log(u))`` with ``u`` uniform in ``[tiny, 1)``; shape
+    ``key.shape[:-1] + shape``."""
+    npd = _np(dtype)
+    u = uniform(key, shape, dtype, np.finfo(npd).tiny, np.array(1.0, npd))
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key, logits):
+    """``jax.vmap(jax.random.categorical)`` over the keys ``(..., 2)`` and
+    their rows of ``logits (..., n)``: the Gumbel-max draw
+    ``argmax(gumbel + logits)``, the first index on a tie; int64
+    ``(...)``."""
+    return torch.argmax(gumbel(key, logits.shape[-1:], logits.dtype) + logits, dim=-1)
 
 
 def _np(dtype):

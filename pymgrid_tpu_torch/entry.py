@@ -7,7 +7,11 @@
 ``dryrun_multichip(n)`` -> one data-parallel REINFORCE training step over the
                            job it runs in (``8 * n`` replicas of scenario 1, 16
                            steps; each rank its rows, the gradient mean by one
-                           ``all_reduce``), then a meshed ``BatchedDiscreteEnv``
+                           ``all_reduce``; JAX's threefry draws: replica ``i``
+                           reset with row ``i`` of ``split(key(0), 8 * n)`` and
+                           its exploration noise drawn from its engine keys,
+                           so the loss and mean return are the JAX dryrun's at
+                           any world size), then a meshed ``BatchedDiscreteEnv``
                            rollout with its ``shared_step=True`` twin held
                            bitwise against it, then a meshed ``SuiteRunner``
                            block-prefetch rollout from JAX's int32 starts
@@ -26,6 +30,7 @@ import torch
 import torch.distributed as torch_dist
 
 from pymgrid_tpu_torch import Microgrid
+from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core.compiled import CompiledMicrogrid
 from pymgrid_tpu_torch.core.engine import make_reset_fn, make_step_fn
 from pymgrid_tpu_torch.core.params import params_to_torch, with_config_axis
@@ -49,7 +54,10 @@ def entry(device="cuda"):
 def _reinforce_step(mesh, batch, n_steps, sigma=0.1, lr=1e-4):
     """The JAX ``train_step``: Gaussian-exploration REINFORCE with a linear
     sigmoid policy on scenario 1 (every module kind), this rank's rows of
-    ``batch`` replicas; returns the job's loss and mean return."""
+    ``batch`` replicas keyed by ``split(key(0), batch)``; each step draws
+    its noise from ``fold_in(rng, 3)`` before the engine step splits
+    ``rng``, as the JAX scan body does.  Returns the job's loss and mean
+    return."""
     spec, params, _ = extract_spec(Microgrid.from_scenario(1), dtype=np.float32)
     params = with_config_axis(params_to_torch(params, mesh.device, "float32"))
     step_fn = make_step_fn(spec, normalized=True, with_log=False)
@@ -57,15 +65,15 @@ def _reinforce_step(mesh, batch, n_steps, sigma=0.1, lr=1e-4):
     n_act = spec.n_battery + 2 * spec.n_genset + spec.n_grid
     w = torch.zeros((spec.obs_dim, n_act), device=mesh.device, requires_grad=True)
     b = torch.zeros(n_act, device=mesh.device, requires_grad=True)
-    generator = torch.Generator(device=mesh.device).manual_seed(mesh.rank)
+    keys = prng.split(prng.key(0, mesh.device), batch)[mesh.local_rows(batch)]
 
     states = make_reset_fn(spec)(
-        params, params["initial_step"].to(torch.int32).view(1, 1).expand(1, local))
+        params, params["initial_step"].to(torch.int32).view(1, 1).expand(1, local), keys[None])
     obs = torch.zeros((local, spec.obs_dim), device=mesh.device)
     logps, rewards = [], []
     for _ in range(n_steps):
         mean = torch.sigmoid(obs @ w + b)
-        eps = torch.randn((local, n_act), generator=generator, device=mesh.device)
+        eps = prng.normal(prng.fold_in(states["rng"][0], 3), (n_act,), torch.float32)
         a = torch.clamp(mean.detach() + sigma * eps, 0.0, 1.0)
         logps.append(-((a - mean) ** 2).sum(dim=-1) / (2 * sigma ** 2))
         nb, ng = spec.n_battery, spec.n_genset
@@ -131,11 +139,11 @@ def dryrun_multichip(n_devices, device="cuda"):
             torch_dist.destroy_process_group()
     result = {"devices": n_devices, "batch": batch, "loss": loss, "mean_return": mean_ret,
               "fused_rollout_mean_reward": float(rewards.mean()),
-              "suite_mean": float(acc.mean())}
+              "blocked_suite_mean": float(acc.mean())}
     print(f"dryrun_multichip: {n_devices} devices ({torch.device(device).type}), "
           f"batch={batch}, loss={loss:.4f}, mean_return={mean_ret:.4f}, "
           f"fused_rollout_mean_reward={result['fused_rollout_mean_reward']:.4f}, "
-          f"suite_mean={result['suite_mean']:.4f}", flush=True)
+          f"blocked_suite_mean={result['blocked_suite_mean']:.4f}", flush=True)
     return result
 
 

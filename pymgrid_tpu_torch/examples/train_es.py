@@ -17,7 +17,11 @@ example's operation order.
 
 The parameter vector has the JAX example's flat layout (per layer ``w``
 row-major as ``(in, out)``, then ``b``), so a JAX ``theta_flat`` carries
-across as it is: no converter is needed.
+across as it is: no converter is needed.  The draws are JAX's threefry
+draws (:mod:`pymgrid_tpu_torch.core.prng`), keyed as the JAX example keys
+them: ``theta0 = 0.01 * normal(fold_in(key, 0))`` and generation ``g``'s
+noise ``normal(fold_in(key, 1000 + g))``, so a seeded run is the JAX
+example's run, generation by generation.
 
 Run: python -m pymgrid_tpu_torch.examples.train_es [--scenario 0] [--pop 256] [--gens 150]
 (``--device cpu`` on a machine without a card).
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from pymgrid_tpu_torch._device import numpy_dtype, resolve_device, torch_dtype
+from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core.engine import gather_rows, make_step_fn, slot_param
 from pymgrid_tpu_torch.core.lp import _matmul_precision
 from pymgrid_tpu_torch.core.params import params_to_torch, with_config_axis
@@ -161,28 +166,38 @@ class ES:
         theta.grad = -(shaped[:, None] * eps).mean(dim=0) / self.sigma
         optimizer.step()
 
-    def generation(self, theta, optimizer, generator):
-        """One generation: antithetic noise from ``generator``, the
-        population's returns, the update; returns the returns."""
-        eps = torch.randn((self.pop // 2, self.dim), generator=generator,
-                          device=self.device)
-        eps = torch.cat([eps, -eps])
+    def initial_theta(self, seed):
+        """The JAX ``run``'s start, ``0.01 * normal(fold_in(key(seed), 0),
+        (dim,))`` in float32."""
+        key = prng.fold_in(prng.key(seed, self.device), 0)
+        return 0.01 * prng.normal(key, (self.dim,), torch.float32)
+
+    def noise(self, key):
+        """A generation's antithetic noise from its key (the JAX
+        ``es_generation``'s): ``eps = normal(key, (pop // 2, dim))`` in
+        float32, then ``[eps, -eps]``; ``(pop, dim)``."""
+        eps = prng.normal(key, (self.pop // 2, self.dim), torch.float32)
+        return torch.cat([eps, -eps])
+
+    def generation(self, theta, optimizer, key):
+        """One generation: antithetic noise from the generation's ``key``,
+        the population's returns, the update; returns the returns."""
+        eps = self.noise(key)
         with torch.no_grad():
             returns = self.episode_returns(theta.detach()[None] + self.sigma * eps)
         self.update(theta, optimizer, eps, returns)
         return returns
 
     def __call__(self, gens=150, seed=0, log_every=10, eval_seed=123):
-        """Train ``gens`` generations from ``0.01 * N(0, 1)`` weights drawn
-        on the CPU; returns ``(theta, history)``, history the best return of
-        each generation."""
-        theta = (0.01 * torch.randn(self.dim, generator=torch.Generator().manual_seed(seed)))
-        theta = theta.to(self.device).requires_grad_()
+        """Train ``gens`` generations from :meth:`initial_theta`, generation
+        ``g`` keyed by ``fold_in(key(seed), 1000 + g)``; returns ``(theta,
+        history)``, history the best return of each generation."""
+        theta = self.initial_theta(seed).requires_grad_()
         optimizer = torch.optim.Adam([theta], lr=self.lr)
-        generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        key = prng.key(seed, self.device)
         history = []
         for g in range(gens):
-            returns = self.generation(theta, optimizer, generator)
+            returns = self.generation(theta, optimizer, prng.fold_in(key, 1000 + g))
             r_max, r_mean = torch.stack([returns.max(), returns.mean()]).tolist()
             history.append(r_max)
             if g % log_every == 0:

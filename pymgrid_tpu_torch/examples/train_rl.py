@@ -20,9 +20,14 @@ training of an MLP policy on the discrete priority-list environment.
   ``all_reduce`` of the flattened gradient (with the loss and mean return)
   divided by the world size, XLA's psum-mean in the JAX example.  No DDP: its
   reducer assumes one forward per backward, and this loss calls the MLPs
-  ``2 * rollout_len`` times.  Sampled actions come from one generator per
-  rank, so a sampled run depends on the world size; with fed actions a
-  2-rank step equals the 1-rank full-batch step.
+  ``2 * rollout_len`` times.
+* JAX's threefry draws (:mod:`pymgrid_tpu_torch.core.prng`), keyed as the
+  JAX example keys them: ``init_theta`` from ``key(seed)``, each global
+  replica's rollout keys from row ``i`` of ``split(fold_in(key, 2), batch)``
+  (its env keys, where the spec draws gaussian forecasts, from
+  ``split(fold_in(key, 1), batch)``), folded with the iteration index and
+  split at every step for ``categorical``.  A rank takes its rows, so a
+  seeded run is the JAX example's run at any world size.
 * Every matmul runs in full float32 (TF32 off on CUDA).
 
 Run: python -m pymgrid_tpu_torch.examples.train_rl [--scenario 1] [--batch 1024] [--iters 40]
@@ -36,7 +41,8 @@ import torch
 from torch import nn
 
 from pymgrid_tpu_torch._device import resolve_device
-from pymgrid_tpu_torch.core.engine import make_reset_fn, make_step_fn
+from pymgrid_tpu_torch.core import prng
+from pymgrid_tpu_torch.core.engine import make_reset_fn, make_step_fn, needs_keys
 from pymgrid_tpu_torch.core.lp import _matmul_precision
 from pymgrid_tpu_torch.core.params import without_config_axis
 from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy, make_rollout_fn
@@ -58,13 +64,13 @@ def zero_action(spec, batch, dtype, device):
             "grid": zeros(spec.n_grid)}
 
 
-def start_states(spec, params, step_fn, batch):
+def start_states(spec, params, step_fn, batch, keys=None):
     """The JAX examples' start: ``batch`` replicas reset at the config's
-    initial step, then one zero-action engine step (no auto-reset), all
-    sharing one ``(1, 1)`` step.  Returns ``(states, obs)`` with the config
-    axis, ``(1, B, ...)``."""
+    initial step (given ``keys`` ``(1, B, 2)``, keyed by them), then one
+    zero-action engine step (no auto-reset), all sharing one ``(1, 1)``
+    step.  Returns ``(states, obs)`` with the config axis, ``(1, B, ...)``."""
     starts = params["initial_step"].to(torch.int32).view(1, 1)
-    states = make_reset_fn(spec)(params, starts.expand(1, batch))
+    states = make_reset_fn(spec)(params, starts.expand(1, batch), keys)
     states["step"] = states["step"][:, :1]
     device = states["battery_charge"].device
     action = zero_action(spec, (1, batch), states["battery_charge"].dtype, device)
@@ -107,12 +113,17 @@ class ActorCritic(nn.Module):
 
 
 def _set_layers(theta, layers_by_head):
+    """Copy ``{"w", "b"}`` layers (tensors on any device, or numpy or JAX
+    arrays) into ``theta``'s ``nn.Linear`` layers."""
+    def as_tensor(x):
+        return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+
     with torch.no_grad():
         for head, layers in layers_by_head.items():
             for linear, layer in zip(theta.linears(head), layers, strict=True):
                 # JAX w is (in, out); nn.Linear.weight is (out, in)
-                linear.weight.copy_(torch.as_tensor(np.asarray(layer["w"])).T)
-                linear.bias.copy_(torch.as_tensor(np.asarray(layer["b"])))
+                linear.weight.copy_(as_tensor(layer["w"]).T)
+                linear.bias.copy_(as_tensor(layer["b"]))
     return theta
 
 
@@ -156,33 +167,49 @@ class A2C:
 
     # ---------------------------------------------------------------- model
     def init_theta(self, seed=0):
-        """Fresh weights, drawn on the CPU (the same on every device):
+        """Fresh weights, the JAX ``init_theta(PRNGKey(seed))``: ``kp, kv =
+        split(key)``, one key of ``split(k, n_layers)`` per layer, ``w``
         normal times ``sqrt(2 / fan_in)``, zero biases."""
-        gen = torch.Generator().manual_seed(seed)
+        head_keys = prng.split(prng.key(seed, self.device))
         layers = {}
-        for head, n_out in (("policy", self.n_actions), ("value", 1)):
+        for head_key, (head, n_out) in zip(head_keys, (("policy", self.n_actions),
+                                                       ("value", 1))):
             sizes = [self.obs_dim, *HIDDEN, n_out]
-            layers[head] = [{"w": torch.randn((m, n), generator=gen) * np.sqrt(2.0 / m),
+            layer_keys = prng.split(head_key, len(sizes) - 1)
+            layers[head] = [{"w": prng.normal(k, (m, n), torch.float32) * np.sqrt(2.0 / m),
                              "b": torch.zeros(n)}
-                            for m, n in zip(sizes[:-1], sizes[1:])]
-        theta = ActorCritic(self.obs_dim, self.n_actions)
-        return _set_layers(theta, layers).to(self.device)
+                            for k, m, n in zip(layer_keys, sizes[:-1], sizes[1:])]
+        return _set_layers(ActorCritic(self.obs_dim, self.n_actions).to(self.device), layers)
 
     # -------------------------------------------------------------- rollout
-    def init_envs(self):
+    def _row_keys(self, seed, data):
+        """This rank's rows of ``split(fold_in(key(seed), data), batch)``:
+        ``(B, 2)``."""
+        return prng.split(prng.fold_in(prng.key(seed, self.device), data), self.batch)[self._rows]
+
+    def rollout_keys(self, seed):
+        """This rank's rows of the JAX example's rollout keys for a run with
+        ``seed``, ``split(fold_in(key(seed), 2), batch)``: ``(B, 2)``."""
+        return self._row_keys(seed, 2)
+
+    def init_envs(self, seed=0):
         """This rank's replicas after the start step: ``(states, obs)``,
-        ``(B, ...)`` states with one shared ``(1,)`` step."""
+        ``(B, ...)`` states with one shared ``(1,)`` step.  A spec that draws
+        gaussian forecasts is keyed by its rows of ``split(fold_in(key(seed),
+        1), batch)``, as the JAX example; elsewhere the keys reach no output
+        and the states carry none."""
+        keys = self._row_keys(seed, 1)[None] if needs_keys(self.spec) else None
         states, obs = start_states(self.spec, self.venv.params, self._start_step,
-                                   self.local_batch)
+                                   self.local_batch, keys)
         return without_config_axis(states), obs[0]
 
-    def loss(self, theta, states, obs, actions=None, generator=None):
+    def loss(self, theta, states, obs, actions=None, keys=None):
         """One A2C rollout of ``rollout_len`` steps and its loss over this
         rank's rows (the JAX ``loss_fn``).  ``actions``: ``(T, B)`` global
         actions to feed (this rank takes its columns); without them actions
-        are drawn from ``generator`` (Gumbel-max, as
-        ``jax.random.categorical``).  Returns ``(loss, (states, obs,
-        mean_return))``."""
+        are drawn from this rank's ``keys`` ``(B, 2)``, split at every step
+        into the carried keys and ``categorical``'s.  Returns ``(loss,
+        (states, obs, mean_return))``."""
         if actions is not None:
             actions = torch.as_tensor(actions, device=self.device)[:, self._rows].long()
         logps, values, rewards, dones, entropies = [], [], [], [], []
@@ -190,9 +217,9 @@ class A2C:
             x = obs.float()
             logits = theta.policy(x)
             if actions is None:
-                u = torch.rand(logits.shape, generator=generator, device=self.device)
-                gumbel = -torch.log(-torch.log(u.clamp_min_(torch.finfo(u.dtype).tiny)))
-                action = torch.argmax(logits.detach() + gumbel, dim=-1)
+                pair = prng.split(keys)
+                keys = pair[:, 0]
+                action = prng.categorical(pair[:, 1], logits.detach())
             else:
                 action = actions[t]
             logp_all = torch.log_softmax(logits, dim=-1)
@@ -215,13 +242,13 @@ class A2C:
                 - self.entropy_coef * torch.stack(entropies).mean())
         return loss, (states, obs, returns.mean())
 
-    def train_step(self, theta, optimizer, states, obs, actions=None, generator=None):
+    def train_step(self, theta, optimizer, states, obs, actions=None, keys=None):
         """One iteration: rollout and loss, ``backward``, the data-parallel
         gradient mean, the Adam step.  Returns ``(states, obs, loss,
         mean_return)``, the last two as the job's means (0-d tensors)."""
         with _matmul_precision("float32", self.device):
             optimizer.zero_grad()
-            loss, (states, obs, mean_ret) = self.loss(theta, states, obs, actions, generator)
+            loss, (states, obs, mean_ret) = self.loss(theta, states, obs, actions, keys)
             loss.backward()
             params = [p for p in theta.parameters()]
             flat = torch.cat([p.grad.reshape(-1) for p in params]
@@ -235,27 +262,25 @@ class A2C:
             optimizer.step()
         return states, obs, flat[-2], flat[-1]
 
-    def generator(self, seed):
-        """The sampling generator of this rank for a run with ``seed``."""
-        world, rank = (1, 0) if self.mesh is None else self.mesh[:2]
-        return torch.Generator(device=self.device).manual_seed(seed * world + rank)
-
     def __call__(self, iters=40, seed=0, log_every=10, theta=None, opt_state=None):
         """Train ``iters`` iterations; returns ``(theta, opt_state,
         history)``, ``opt_state`` the ``torch.optim.Adam`` over ``theta``,
-        so that a continuation block resumes the Adam moments.  The device
-        is read (and a line printed) once per ``log_every`` iterations; the
-        history does not depend on it."""
+        so that a continuation block resumes the Adam moments.  Every call
+        keys its draws and resets its envs from ``seed``, as the JAX
+        ``run``; iteration ``it`` folds ``it`` into the carried rollout
+        keys.  The device is read (and a line printed) once per
+        ``log_every`` iterations; the history does not depend on it."""
         if theta is None:
             theta = self.init_theta(seed)
         if opt_state is None:
             opt_state = torch.optim.Adam(theta.parameters(), lr=self.lr)
-        generator = self.generator(seed)
-        states, obs = self.init_envs()
+        keys = self.rollout_keys(seed)
+        states, obs = self.init_envs(seed)
         history, pending = [], []
         for it in range(iters):
+            keys = prng.fold_in(keys, it)
             states, obs, loss, mean_ret = self.train_step(theta, opt_state, states, obs,
-                                                          generator=generator)
+                                                          keys=keys)
             pending.append(torch.stack([loss, mean_ret]))
             if len(pending) == log_every or it == iters - 1:
                 values = torch.stack(pending).cpu().numpy()

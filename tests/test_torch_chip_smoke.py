@@ -96,10 +96,13 @@ def test_saa_phase_cpu():
 
 def test_a2c_phase_cpu(tmp_path):
     """16 replicas x 8 steps, 2 iterations, and the profiled iteration (a
-    CPU capture records no device events)."""
+    CPU capture records no device events); the sampled iteration's draws
+    are recorded, one per replica and step."""
     out = chip_smoke.phase_a2c("cpu", batch=16, rollout_len=8, iters=2,
                                trace_dir=tmp_path / "trace")
     assert out["loss_rel_vs_cpu"] == 0.0 and out["params_max_abs_vs_cpu"] == 0.0
+    assert out["sampled_flips"] == 0 and out["sampled_rel_vs_cpu"] == 0.0
+    assert out["sampled_draws"] == 16 * 8 and out["sampled_min_margin"] > 0
     assert len(out["history"]) == 2 and out["steps_per_s"] > 0
     assert out["device_events"] == 0 and out["idle_share"] == 1.0
 
@@ -107,12 +110,13 @@ def test_a2c_phase_cpu(tmp_path):
 def test_es_phase_cpu():
     out = chip_smoke.phase_es("cpu", pop=6, hidden=4, n_steps=15)
     assert out["max_rel_vs_cpu"] == 0.0 and len(out["history"]) == 2
+    assert out["draws_max_abs_vs_cpu"] == 0.0
     assert out["rbc"] < 0
 
 
 def test_dryrun_phase_cpu():
     out = chip_smoke.phase_dryrun("cpu")
-    assert out["devices"] == 1 and out["seconds"] > 0
+    assert out["devices"] == 1 and out["seconds"] > 0 and out["rel_vs_cpu"] == 0.0
 
 
 def test_random_policy_phase_cpu():

@@ -22,6 +22,7 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 from pymgrid_tpu_torch import Microgrid  # noqa: E402
+from pymgrid_tpu_torch.core import prng  # noqa: E402
 from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy  # noqa: E402
 from pymgrid_tpu_torch.envs import ContinuousMicrogridEnv, DiscreteMicrogridEnv  # noqa: E402
 from pymgrid_tpu_torch.examples.train_rl import build_training  # noqa: E402
@@ -170,8 +171,9 @@ def test_two_process_gloo(tmp_path):
     """Two ranks over gloo: the feed/fetch round trip and an all_reduce, a
     meshed ``BatchedDiscreteEnv`` rollout bitwise against one process, a
     checkpoint of the meshed env that gives each rank its own rows back, and
-    a 2-rank A2C step with fed actions against the 1-rank full-batch step at
-    rtol 1e-6 (see ``_worker``)."""
+    a 2-rank A2C step, with fed actions and with actions sampled from JAX's
+    keys, against the 1-rank full-batch step at rtol 1e-6 (see
+    ``_worker``)."""
     port = _free_port()
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen([sys.executable, __file__, str(rank), str(port),
@@ -235,21 +237,28 @@ def _worker(rank, port, ckpt_dir):
         np.testing.assert_array_equal(dist.fetch(back["battery_charge"]),
                                       dist.fetch(states["battery_charge"]))
 
-        # a 2-rank A2C step with fed actions equals the 1-rank full-batch step
+        # a 2-rank A2C step equals the 1-rank full-batch step, with fed
+        # actions and with actions sampled from each replica's own keys
         kw = dict(scenario=0, batch=B, rollout_len=6, device="cpu")
         run2, run1 = build_training(mesh=mesh, **kw), build_training(**kw)
         actions = np.random.RandomState(1).randint(run1.n_actions, size=(6, B))
-        results = []
-        for run in (run2, run1):
-            theta = run.init_theta(seed=0)
-            adam = torch.optim.Adam(theta.parameters(), lr=run.lr)
-            *_, loss, mean_ret = run.train_step(theta, adam, *run.init_envs(), actions=actions)
-            results.append((loss.item(), mean_ret.item(),
-                            torch.cat([p.detach().reshape(-1) for p in theta.parameters()])))
-        (loss2, ret2, p2), (loss1, ret1, p1) = results
-        np.testing.assert_allclose([loss2, ret2], [loss1, ret1], rtol=1e-6)
-        # an entry near 0 (a bias after one step) is held to 1e-6 of the step
-        np.testing.assert_allclose(p2.numpy(), p1.numpy(), rtol=1e-6, atol=1e-6 * run1.lr)
+        for feed in ({"actions": actions}, {"seed": 1}):
+            results = []
+            for run in (run2, run1):
+                theta = run.init_theta(seed=0)
+                adam = torch.optim.Adam(theta.parameters(), lr=run.lr)
+                if "seed" in feed:
+                    step_kw = {"keys": prng.fold_in(run.rollout_keys(feed["seed"]), 0)}
+                else:
+                    step_kw = feed
+                *_, loss, mean_ret = run.train_step(theta, adam, *run.init_envs(), **step_kw)
+                results.append((loss.item(), mean_ret.item(),
+                                torch.cat([p.detach().reshape(-1) for p in theta.parameters()])))
+            (loss2, ret2, p2), (loss1, ret1, p1) = results
+            np.testing.assert_allclose([loss2, ret2], [loss1, ret1], rtol=1e-6, err_msg=str(feed))
+            # an entry near 0 (a bias after one step) is held to 1e-6 of the step
+            np.testing.assert_allclose(p2.numpy(), p1.numpy(), rtol=1e-6, atol=1e-6 * run1.lr,
+                                       err_msg=str(feed))
         print(f"rank {rank} OK", flush=True)
     finally:
         torch.distributed.destroy_process_group()

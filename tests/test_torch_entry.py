@@ -1,6 +1,7 @@
 """The port's entry points (``pymgrid_tpu_torch/entry.py``) on the
 CPU: ``entry()`` against the JAX ``__graft_entry__.entry()``, and the
 data-parallel dryrun over a one-process gloo group."""
+import re
 import sys
 from pathlib import Path
 
@@ -34,7 +35,7 @@ def test_dryrun_multichip_over_gloo():
     result = dryrun_multichip(1, device="cpu")
     assert not torch_dist.is_initialized()      # its own group is gone again
     assert result["devices"] == 1 and result["batch"] == 8
-    for key in ("loss", "mean_return", "fused_rollout_mean_reward", "suite_mean"):
+    for key in ("loss", "mean_return", "fused_rollout_mean_reward", "blocked_suite_mean"):
         assert np.isfinite(result[key]), key
     assert dryrun_multichip(1, device="cpu") == result     # seeded: repeatable
 
@@ -56,11 +57,18 @@ def _recorded(monkeypatch, runner_cls, calls):
     monkeypatch.setattr(runner_cls, "rollout_fn", recorded)
 
 
-def test_dryrun_suite_draws_the_jax_dryruns_starts(monkeypatch):
+def _printed(out, key):
+    """The number printed as ``key=...`` on a dryrun line."""
+    return float(re.search(rf"\b{key}=(-?[\d.]+)", out).group(1))
+
+
+def test_dryrun_suite_draws_the_jax_dryruns_starts(monkeypatch, capsys):
     """The dryrun's meshed suite (scenario 0, 4 replicas x 16 steps, the
     block-prefetch path) starts where ``__graft_entry__.dryrun_multichip``'s
     suite starts without ``jax_enable_x64`` (JAX's int32 draw), bitwise, and
-    its mean equals the JAX suite's at rtol 1e-5 (float32)."""
+    its mean equals the JAX suite's at rtol 1e-5 (float32).  The REINFORCE
+    step draws JAX's keys and noise: its loss and mean return equal the ones
+    the JAX dryrun prints at rtol 1e-5, and both print the same keys."""
     from pymgrid_tpu.parallel.suite import SuiteRunner as JaxSuiteRunner
     from pymgrid_tpu_torch.parallel import SuiteRunner
 
@@ -69,16 +77,24 @@ def test_dryrun_suite_draws_the_jax_dryruns_starts(monkeypatch):
     _recorded(monkeypatch, SuiteRunner, calls)
     with jax.enable_x64(False):
         jax_entry.dryrun_multichip(1)
+        jax_line = capsys.readouterr().out
         (jrunner, jkeys, jacc), = jax_calls
         max_start = min(m.ts_length for m in jrunner.spec.log_order if m.ts_length) - 1
         want = np.array([[int(jax.random.randint(jax.random.fold_in(k, 0x51A7), (), 0,
                                                  max_start)) for k in jkeys[0]]])
         assert np.asarray(jrunner.params["initial_step"]).tolist() == [0]
     result = dryrun_multichip(1, device="cpu")
+    line = capsys.readouterr().out
+    names = lambda text: re.findall(r"(\w+)=", text)  # noqa: E731
+    assert names(line) == names(jax_line) and "blocked_suite_mean" in names(line)
+    for key in ("loss", "mean_return"):
+        np.testing.assert_allclose(result[key], _printed(jax_line, key), rtol=1e-5, err_msg=key)
+        assert _printed(line, key) == round(result[key], 4)
     (runner, keys, acc), = calls
     assert runner.start_dtype == torch.int32 and acc.shape == (1, 4)
     np.testing.assert_array_equal(runner.draw_initial_steps(keys).numpy(), want)
-    np.testing.assert_allclose(result["suite_mean"], float(np.asarray(jacc).mean()), rtol=1e-5)
+    np.testing.assert_allclose(result["blocked_suite_mean"], float(np.asarray(jacc).mean()),
+                               rtol=1e-5)
     np.testing.assert_allclose(acc.numpy(), np.asarray(jacc), rtol=1e-5)
 
 
