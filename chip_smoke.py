@@ -76,7 +76,7 @@ which fails the run on error:
               (population 256, hidden 32, depth cut to 1000 of the year's
               8758 steps): the population's returns at a fixed theta held
               against the CPU float32 run, ``theta0`` and the first
-              generation's noise within 1e-6 of the CPU's, 2
+              generation's noise ``torch.equal`` to the CPU's, 2
               generations timed; ``entry.dryrun_multichip(1)`` over NCCL,
               its loss and mean return against the CPU's at rtol 1e-5.
 7. kernels    the kernel against its plain PyTorch version on the card,
@@ -87,7 +87,13 @@ which fails the run on error:
 
 8. keys       JAX's draws on the card: ``make_random_policy`` at 65536
               replicas of scenario 0 (one draw and step; actions bitwise vs
-              the CPU); the suite's collect rollout with randomized restarts
+              the CPU); ``prng.normal`` (float32 and float64, 23 x 4 per
+              key), ``prng.gumbel`` and ``prng.categorical`` (float32) over
+              65536 split keys, the float32 draws ``torch.equal`` to the
+              CPU's, float64 equal in ``log1p``'s rational and its other
+              differing elements counted, the draws and XLA's ``log1p`` and
+              ``log`` expansions timed beside ``torch.log1p`` and
+              ``torch.log``; the suite's collect rollout with randomized restarts
               (25 x 1024 x 20, float32; dones bitwise vs the CPU, device
               events per step under ``torch.profiler`` beside fixed
               restarts).
@@ -943,18 +949,17 @@ def phase_a2c(device, scenario=1, batch=4096, rollout_len=128, iters=5, entropy_
     return out
 
 
-def phase_es(device, scenario=0, pop=256, hidden=32, n_steps=1000, gens=2, rtol=1e-5,
-             draw_atol=1e-6):
+def phase_es(device, scenario=0, pop=256, hidden=32, n_steps=1000, gens=2, rtol=1e-5):
     """Continuous ES (``pymgrid_tpu_torch.examples.train_es``) at the
     published width with the depth cut to ``n_steps``: the population's
     returns at a fixed theta and noise (``RandomState(0)``) equal the CPU
     float32 run at ``rtol`` (measured on the H100: 2.4e-7; the MLPs' sums
     run in other orders on the two devices); a seed-0 run's draws on the
     card, ``theta0`` and the first generation's noise (JAX's threefry
-    normals), within ``draw_atol`` of the CPU's (the tolerance
-    ``tests/test_torch_prng.py`` holds float32 normals to against JAX's:
-    ``log1p`` may differ in the last bit, and ``erfinv`` grows it in the
-    tails); then ``gens`` generations timed."""
+    normals), ``torch.equal`` to the CPU's (float32 normals are JAX's bits on
+    either device, :func:`phase_draws`); then ``gens`` generations timed."""
+    import torch
+
     from pymgrid_tpu_torch.core import prng
     from pymgrid_tpu_torch.examples.train_es import build_es
     from pymgrid_tpu_torch.utils.profiling import Throughput
@@ -976,17 +981,16 @@ def phase_es(device, scenario=0, pop=256, hidden=32, n_steps=1000, gens=2, rtol=
     for what, draw in (("theta0", lambda r, d: r.initial_theta(0)),
                        ("first noise", lambda r, d: r.noise(prng.fold_in(prng.key(0, d), 1000)))):
         x, want = draw(run, device).cpu(), draw(cpu_run, "cpu")
-        err = float((x - want).abs().max())
-        draws_err = max(draws_err, err)
-        _check(x.shape == want.shape and err <= draw_atol,
-               f"ES {what} on the card vs CPU: max abs diff {err:.3e} > {draw_atol}")
+        _check(x.shape == want.shape, f"ES {what}: shape {tuple(x.shape)} on the card")
+        draws_err = max(draws_err, float((x - want).abs().max()))
+        _check(torch.equal(x, want), f"ES {what} on the card vs CPU: {int((x != want).sum())} "
+                                     f"entries differ, max abs diff {draws_err:.3e}")
 
     with Throughput(pop, n_steps * gens, device) as meter:
         _, history = run(gens=gens, log_every=gens)
     _check(len(history) == gens and bool(np.isfinite(history).all()),
            f"ES history not finite: {history}")
-    return {"max_rel_vs_cpu": rel, "draws_max_abs_vs_cpu": draws_err, "draw_atol": draw_atol,
-            "seconds": meter.elapsed,
+    return {"max_rel_vs_cpu": rel, "draws_max_abs_vs_cpu": draws_err, "seconds": meter.elapsed,
             "steps_per_s": meter.steps_per_sec, "history": history,
             "rbc": run.rbc_baseline()}
 
@@ -1043,6 +1047,62 @@ def phase_random_policy(device, batch=65536, scenario=0, seed=0):
                f"random policy: {k} actions on the card differ from the CPU's")
     _check(bool(torch.isfinite(out.reward).all()), "random policy: non-finite rewards")
     return {"seconds": seconds, "n_actions": sum(v.numel() for v in want.values())}
+
+
+def phase_draws(device, n_keys=65536, window=(23, 4), n_actions=5, seed=0, iters=20):
+    """JAX's float draws on the card against the same calls on the CPU, over
+    the keys ``split(key(seed), n_keys)``: ``prng.normal`` in float32 and
+    float64 (one gaussian-forecast ``window`` per key), ``prng.gumbel`` in
+    float32 (``n_actions`` per key) and ``prng.categorical`` of
+    ``RandomState(seed)`` float32 logits.  The float32 draws are
+    ``torch.equal`` to the CPU's: every step of XLA's ``log`` and ``log1p``
+    is its own op, so it rounds once on either device.  Float64 normals are
+    equal where ``log1p`` takes its rational (``u**2 < sqrt(2) - 1``); off
+    it, ``torch.log`` and ``torch.sqrt`` may round differently on the two
+    devices, and the count of differing elements is returned.  On the card
+    also the CUDA-event milliseconds of the float32 normal and gumbel draws,
+    and of ``_xla_log1p`` and ``_xla_log_f32`` beside the single
+    ``torch.log1p`` and ``torch.log`` they replace, on the same inputs."""
+    import torch
+
+    from pymgrid_tpu_torch.core import prng
+
+    logits = np.random.RandomState(seed).randn(n_keys, n_actions).astype(np.float32)
+
+    def draws(dev):
+        keys = prng.split(prng.key(seed, dev), n_keys)
+        return {"normal32": prng.normal(keys, window, torch.float32),
+                "normal64": prng.normal(keys, window, torch.float64),
+                "gumbel32": prng.gumbel(keys, (n_actions,), torch.float32),
+                "categorical": prng.categorical(keys, torch.as_tensor(logits, device=dev))}
+
+    got, want = draws(device), draws("cpu")
+    for name in ("normal32", "gumbel32", "categorical"):
+        _check(torch.equal(got[name].cpu(), want[name]),
+               f"draws: {name} on the card differs from the CPU's at "
+               f"{int((got[name].cpu() != want[name]).sum())} of {want[name].numel()}")
+    keys = prng.split(prng.key(seed, "cpu"), n_keys)
+    u = prng.uniform(keys, window, torch.float64, np.nextafter(-1.0, 0.0), 1.0)
+    rational = u * u < np.sqrt(2) - 1
+    differ = got["normal64"].cpu() != want["normal64"]
+    _check(not bool((differ & rational).any()),
+           f"draws: {int((differ & rational).sum())} float64 normals in log1p's rational "
+           f"differ from the CPU's")
+    out = {"n_keys": n_keys, "normal_elements": want["normal64"].numel(),
+           "normal64_differ": int(differ.sum()), "normal64_off_rational": int((~rational).sum())}
+    if torch.device(device).type == "cuda":
+        keys = prng.split(prng.key(seed, device), n_keys)
+        x = 2 * torch.rand((n_keys,) + window, device=device, generator=torch.Generator(
+            device).manual_seed(seed)) - 1
+        w, y = -x * x, x.abs() + 0.5
+        out["ms"] = {
+            "normal32": _event_ms(lambda: prng.normal(keys, window, torch.float32), iters),
+            "gumbel32": _event_ms(lambda: prng.gumbel(keys, (n_actions,), torch.float32), iters),
+            "xla_log1p32": _event_ms(lambda: prng._xla_log1p(w), iters),
+            "torch_log1p32": _event_ms(lambda: torch.log1p(w), iters),
+            "xla_log32": _event_ms(lambda: prng._xla_log_f32(y), iters),
+            "torch_log32": _event_ms(lambda: torch.log(y), iters)}
+    return out
 
 
 def phase_suite_collect(device, n_configs=25, replicas=1024, n_steps=20, seed=0,
@@ -1460,9 +1520,8 @@ def main():
           f"2 generations in {es['seconds']:.4f} s, {es['steps_per_s']:.6g} env-steps/s; "
           f"best-of-pop {es['history']} vs RBC {es['rbc']:.2f}; population returns vs CPU "
           f"float32 max rel {es['max_rel_vs_cpu']:.3e} {tag}", flush=True)
-    print(f"training/es draws: theta0 and the first generation's noise on the card vs the "
-          f"CPU: max abs diff {es['draws_max_abs_vs_cpu']:.3e} (tolerance {es['draw_atol']}) "
-          f"{tag}", flush=True)
+    print(f"training/es draws: theta0 and the first generation's noise on the card "
+          f"torch.equal to the CPU's {tag}", flush=True)
     dry = phase_dryrun(device)
     print(f"training/dryrun_multichip(1) over NCCL: loss {dry['loss']:.4f}, mean return "
           f"{dry['mean_return']:.4f}, in {dry['seconds']:.2f} s; max rel vs the CPU (gloo) "
@@ -1473,6 +1532,17 @@ def main():
     print(f"keys/random_policy: scenario 0, 65536 replicas: one draw and step in "
           f"{rp['seconds']:.4f} s; {rp['n_actions']} actions bitwise vs the CPU {tag}",
           flush=True)
+    dr = phase_draws(device)
+    ms = dr["ms"]
+    print(f"keys/draws: {dr['n_keys']} split keys: float32 normals (23 x 4 per key), gumbels "
+          f"(5 per key) and categorical draws torch.equal to the CPU's; float64 normals: "
+          f"{dr['normal64_differ']} of {dr['normal_elements']} differ from the CPU's, all off "
+          f"log1p's rational ({dr['normal64_off_rational']} draws there) {tag}", flush=True)
+    print(f"keys/draws timing (CUDA events, mean of 20): normal float32 {ms['normal32']:.4f} ms, "
+          f"gumbel float32 {ms['gumbel32']:.4f} ms; on {dr['normal_elements']} float32 "
+          f"elements _xla_log1p {ms['xla_log1p32']:.4f} ms vs torch.log1p "
+          f"{ms['torch_log1p32']:.4f} ms, _xla_log_f32 {ms['xla_log32']:.4f} ms vs torch.log "
+          f"{ms['torch_log32']:.4f} ms {tag}", flush=True)
     with tempfile.TemporaryDirectory(prefix=".collect-trace-", dir=REPO) as trace_dir:
         sc = phase_suite_collect(device, trace_dir=trace_dir)
     print(f"keys/suite_collect: 25 x 1024 x 20 steps with randomized restarts in "

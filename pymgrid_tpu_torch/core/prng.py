@@ -22,10 +22,18 @@ one; ``randint``'s uint32 products and sums are masked the same way, so
 they wrap as JAX's do.  ``normal`` builds uniforms in ``[nextafter(-1, 0),
 1)`` from the top mantissa bits as JAX does and maps them through the erfinv
 polynomials XLA uses (M. Giles, "Approximating the erfinv function", GPU
-Computing Gems Jade, 2011).  Keys, bits, uniforms and integers are bitwise
-equal to ``jax.random``; normals differ only where ``log1p`` or the last
-rounding of the polynomial does (tests/test_torch_prng.py states the
-measured gap).
+Computing Gems Jade, 2011).  ``erfinv``'s ``log1p`` and ``gumbel``'s ``log``
+are XLA's own CPU expansions (Cephes' ``log1p`` rational and ``logf``
+polynomial), one tensor op per IEEE operation in XLA's order, with XLA's
+CPU flush of subnormals to zero at their inputs.  Keys, bits, uniforms,
+integers and the float32 normals, gumbels and categorical draws are bitwise
+equal to ``jax.random`` on the CPU (XLA compiled without FMA contraction, as
+``--xla_cpu_max_isa=AVX`` compiles it), and the same bits on a CUDA device,
+where every op rounds once.  Float64 normals are bitwise where ``log1p``
+takes its rational (``u**2 < sqrt(2) - 1``); elsewhere they use
+``torch.log`` and ``torch.sqrt``, which can differ in the last bit from the
+libm ``log`` and the IEEE root XLA uses (tests/test_torch_prng.py bounds
+the gap).
 """
 import math
 
@@ -188,10 +196,14 @@ def normal(key, shape, dtype):
 def gumbel(key, shape, dtype):
     """``jax.random.gumbel`` (its default ``mode="low"``):
     ``-log(-log(u))`` with ``u`` uniform in ``[tiny, 1)``; shape
-    ``key.shape[:-1] + shape``."""
+    ``key.shape[:-1] + shape``.  In float32 both logs are XLA's
+    (``_xla_log_f32``), so the draw is JAX's bit for bit; float64 uses
+    ``torch.log``, which can differ in the last bit from the libm ``log``
+    XLA calls, so float64 gumbels can differ from JAX's."""
     npd = _np(dtype)
     u = uniform(key, shape, dtype, np.finfo(npd).tiny, np.array(1.0, npd))
-    return -torch.log(-torch.log(u))
+    log = _xla_log_f32 if dtype == torch.float32 else torch.log
+    return -log(-log(u))
 
 
 def categorical(key, logits):
@@ -262,15 +274,112 @@ def _horner(coeffs, w):
     return p
 
 
+# XLA's CPU ``log`` in float32 (``jnp.log``; XLA's replacement of
+# ``llvm.log.f32``): Cephes' ``logf`` minimax polynomial in ``m - 1``, highest
+# degree first, and ln(2) in two parts (0.693359375 + -2.12194440e-4).
+_LOG_F32 = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+            1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+            3.3333331174e-1)
+_LN2_HI, _LN2_LO = 0.693359375, -2.12194440e-4
+_SQRT_HALF_F32 = 0.70710677
+# XLA's CPU ``log1p`` (the ``xla.log1p`` intrinsic, float32 and float64):
+# Cephes' ``log1p`` rational for ``|x| < sqrt(2) - 1``, numerator and
+# denominator highest degree first (float32 takes them rounded to float32).
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG1P_SMALL = 0.41421356237309504880
+
+
+def _f32(v):
+    """``v`` rounded to float32, as a Python float (exact in float64)."""
+    return float(np.float32(v))
+
+
+def _flush_subnormal(x):
+    """XLA's CPU runtime computes with subnormals read as zero: ``x`` with
+    every subnormal replaced by the zero of its sign."""
+    tiny = float(np.finfo(_np(x.dtype)).tiny)
+    return torch.where(x.abs() < tiny, x * 0.0, x)
+
+
+def _xla_log_f32(x):
+    """XLA's float32 ``log`` on the CPU, bit for bit: ``x`` split as
+    ``2**e * m`` with ``m`` in ``[sqrt(1/2), sqrt(2))`` through its int32
+    bits, Cephes' polynomial in ``m - 1`` in XLA's pairing order (three
+    degree-2 Horner chains joined through ``(m - 1)**3``), the exponent added
+    in two parts; NaN below 0, ``-inf`` at 0, ``inf`` at ``inf``.  Every step
+    is its own tensor op, so each rounds once, on any device."""
+    x = _flush_subnormal(x)
+    tiny = _f32(np.finfo(np.float32).tiny)
+    bits = torch.where(x > tiny, x, tiny).view(torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)   # in [0.5, 1)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    below = m < _f32(_SQRT_HALF_F32)
+    e = e - below.to(torch.float32)
+    m = (m - 1.0) + torch.where(below, m, 0.0)
+    m2 = m * m
+    m3 = m2 * m
+    c = [_f32(v) for v in _LOG_F32]
+    a, b, d = (m * c[i] + c[i + 1] for i in (0, 3, 6))
+    a, b, d = a * m + c[2], b * m + c[5], d * m + c[8]
+    poly = ((a * m3 + b) * m3 + d) * m3
+    y = (m - m2 * 0.5) + (poly + e * _f32(_LN2_LO))
+    y = (y + e * _f32(_LN2_HI)).view(torch.int32)
+    nan, inf, ninf = -1, 0x7F800000, -0x800000          # 0xFFFFFFFF, +-inf bits
+    y = torch.where(x > 0, y, nan)                      # below 0 and NaN
+    y = torch.where(x == np.inf, inf, y)
+    return torch.where(x == 0, ninf, y).view(torch.float32)
+
+
+def _xla_log1p(x):
+    """XLA's ``log1p`` on the CPU for float32 and float64: Cephes' rational
+    where ``|x| < sqrt(2) - 1``, with both Horner chains started as
+    ``0 * x + c0`` as XLA writes them, and ``log(1 + x)`` elsewhere.
+    Float32 is bitwise (``_xla_log_f32``); float64 is bitwise in the
+    rational, while its ``log(1 + x)`` is ``torch.log``, which can differ
+    from the libm ``log`` XLA calls in the last bit."""
+    f = _f32 if x.dtype == torch.float32 else float
+    x = _flush_subnormal(x)
+    x2 = x * x
+    zero = x * 0.0
+    p, q = zero + f(_LOG1P_P[0]), zero + f(_LOG1P_Q[0])
+    for cp, cq in zip(_LOG1P_P[1:], _LOG1P_Q[1:]):
+        p, q = p * x + f(cp), q * x + f(cq)
+    small = x + (x2 * -0.5 + (x * x2) * (p / q))
+    one_plus = x + 1.0
+    large = _xla_log_f32(one_plus) if x.dtype == torch.float32 else torch.log(one_plus)
+    return torch.where(x.abs() < f(_LOG1P_SMALL), small, large)
+
+
+def _sqrt_f32(x):
+    """The correctly rounded float32 square root, as XLA's ``sqrt`` is, on
+    any device (``torch.sqrt`` on the CPU goes through a vector library that
+    is off by an ulp at some inputs): the float64 root rounded to float32,
+    moved one ulp where the exact float64 square of the midpoint to a
+    neighbour says the root lies beyond it."""
+    s = torch.sqrt(x.double()).float()
+    xd, sd = x.double(), s.double()
+    for toward, beyond in ((np.inf, torch.gt), (0.0, torch.lt)):
+        n = torch.nextafter(s, torch.full_like(s, toward))
+        mid = (sd + n.double()) * 0.5                  # exact: 25 bits
+        s = torch.where(beyond(xd, mid * mid), n, s)   # mid * mid exact: 50 bits
+    return s
+
+
 def erfinv(x):
     """XLA's ``erf_inv`` for float32 and float64 tensors."""
     dt = x.dtype
     const = lambda v: torch.as_tensor(np.asarray(v, dtype=_np(dt)), device=x.device)
-    w = -torch.log1p(-x * x)
+    w = -_xla_log1p(-x * x)
     if dt == torch.float32:
         (split_at, shift_lo, shift_hi), lo, hi = _F32
         small = w < const(split_at)
-        w = torch.where(small, w - const(shift_lo), torch.sqrt(w) - const(shift_hi))
+        w = torch.where(small, w - const(shift_lo), _sqrt_f32(w) - const(shift_hi))
         coeffs = [torch.where(small, const(a), const(b)) for a, b in zip(lo, hi)]
     else:
         lt_6 = w < const(6.25)

@@ -119,6 +119,14 @@ def test_dryrun_phase_cpu():
     assert out["devices"] == 1 and out["seconds"] > 0 and out["rel_vs_cpu"] == 0.0
 
 
+def test_draws_phase_cpu():
+    """The draws phase at 64 keys: the CPU against itself, every draw equal;
+    no timing off the card."""
+    out = chip_smoke.phase_draws("cpu", n_keys=64)
+    assert out["normal_elements"] == 64 * 23 * 4 and out["normal64_differ"] == 0
+    assert 0 < out["normal64_off_rational"] < out["normal_elements"] and "ms" not in out
+
+
 def test_random_policy_phase_cpu():
     out = chip_smoke.phase_random_policy("cpu", batch=64)
     assert out["n_actions"] == 64 * 2 and out["seconds"] > 0

@@ -2,10 +2,11 @@
 engine (CPU, float64): threefry-gaussian forecasts, traced user forecasters
 and custom battery/genset callables.
 
-Gaussian windows come from the same keys as JAX's and differ only where the
-erfinv's ``log1p`` rounds differently (tests/test_torch_prng.py): keys, rewards
-and dones are bitwise, observations and log rows within ``GAUSS_ATOL``
-(measured up to 1.5e-14 on these inputs).  The callable cases of
+Gaussian windows come from the same keys as JAX's.  In float32 they are
+bitwise.  In float64 they differ only where a draw leaves ``log1p``'s
+rational, by a few ulps (tests/test_torch_prng.py): keys, rewards and dones
+are bitwise, observations and log rows within ``GAUSS_ATOL`` (measured up to
+1.5e-14 on these inputs).  The callable cases of
 tests/test_engine_equivalence.py are bitwise.  Inputs are made from a seed with
 numpy and each package builds its microgrid with its own host layer.
 """
@@ -71,10 +72,13 @@ def _mods(ns, **kwargs):
 
 
 # --------------------------------------------------------------- gaussians
-@pytest.mark.parametrize("config", [
+GAUSS_CONFIGS = [
     dict(seed=5, forecaster=1.0, forecast_horizon=4),
     dict(seed=6, forecaster=0.5, forecast_horizon=23, timesteps=40),
-])
+]
+
+
+@pytest.mark.parametrize("config", GAUSS_CONFIGS)
 def test_compiled_gaussian_forecasts_match_jax(config):
     """The same seed through both CompiledMicrogrids: the same keys, windows
     within GAUSS_ATOL, rewards and dones bitwise; the second config runs
@@ -105,6 +109,26 @@ def test_compiled_gaussian_forecasts_match_jax(config):
     # another seed draws other windows
     other = ours.initial_state(seed=8)
     assert not torch.equal(other["forecast"]["load"], ours.initial_state(seed=7)["forecast"]["load"])
+
+
+@pytest.mark.parametrize("config", GAUSS_CONFIGS)
+def test_compiled_gaussian_forecasts_bitwise_in_float32(config):
+    """Float32 CompiledMicrogrids from the same seed: the initial windows and
+    every step's windows equal the JAX engine's bitwise, with the keys; the
+    draw is the only thing between the two, and it is JAX's bit for bit."""
+    mg = pymgrid_tpu.Microgrid(_mods(JM, **config))
+    jc = JaxCompiled(mg, dtype=np.float32)
+    ours = CompiledMicrogrid(Microgrid(_mods(M, **config)), dtype="float32", device="cpu")
+    jstate, state = jc.initial_state(seed=7), ours.initial_state(seed=7)
+    np.random.seed(11)
+    for t in range(31):
+        for kind in jstate["forecast"]:
+            assert state["forecast"][kind].dtype == torch.float32
+            _eq(state["forecast"][kind][0, 0], jstate["forecast"][kind], f"{kind} {t}")
+        _eq(state["rng"][0, 0], np.asarray(jstate["rng"]).astype(np.int64), f"rng {t}")
+        action = mg.sample_action()
+        jstate, _ = jc.step(jstate, jc.action_to_arrays(action))
+        state, _ = ours.step(state, ours.action_to_arrays(action))
 
 
 def _gauss_env(pkg, ns, env_cls, **kw):

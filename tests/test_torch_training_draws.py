@@ -5,16 +5,17 @@ against the JAX examples (CPU, float32).
 The JAX examples run without ``jax_enable_x64`` (their ``main`` never turns
 it on), so they are held here inside ``jax.enable_x64(False)``.
 
-Tolerances: the integer draws (keys, categorical samples) exactly; float32
-gumbels within 2 ulps of ``max(1, |g|)`` (XLA's and torch's ``log`` differ
-in the last bit); ``init_theta`` and ``theta0`` at rtol 1e-6 (normals within
-an ulp); the runs' histories, and ES's parameters after two generations, at
-rtol 1e-5 (the two sides sum in other orders; ES's parameters also to an
-absolute 1e-5 of the learning rate per Adam step).  A sample or a rank can flip
-on a near-tie, so each test first asserts that the margin of every draw it
-makes (the gap between the two best ``logits + gumbel``, the smallest gap
-between distinct returns) is wider than the tolerance: a failure of the
-margin is a tie, a failure after it a fault.
+Tolerances: the integer draws (keys, categorical samples), float32 gumbels,
+``init_theta``, ``theta0`` and ES's noise exactly (the port's ``log`` and
+``log1p`` are XLA's); float64 gumbels within 2 ulps of ``max(1, |g|)``
+(float64 ``log`` is ``torch.log`` against libm's); the runs' histories, and
+ES's parameters after two generations, at rtol 1e-5 (the two sides sum in
+other orders; ES's parameters also to an absolute 1e-5 of the learning rate
+per Adam step).  The logits and returns also come from sums in other orders,
+so a sample or a rank can flip on a near-tie: each test first asserts that
+the margin of every draw it makes (the gap between the two best ``logits +
+gumbel``, the smallest gap between distinct returns) is wider than the
+tolerance: a failure of the margin is a tie, a failure after it a fault.
 """
 import sys
 from pathlib import Path
@@ -36,7 +37,6 @@ from examples.train_rl import build_training as jax_build_training  # noqa: E402
 
 torch.set_num_threads(1)
 
-F32_EPS = float(np.finfo(np.float32).eps)
 MARGIN = 1e-5   # a draw's margin must exceed this for the draw to be compared
 
 
@@ -55,8 +55,9 @@ def _top2_gap(scores):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["float32", "float64"])
 def test_gumbel_matches_jax(dtype):
     """``prng.gumbel`` equals ``jax.random.gumbel`` (mode ``"low"``) over
-    300 keys x 7 draws: its uniforms bitwise, the gumbels within 2 ulps of
-    ``max(1, |g|)`` (the two ``log`` evaluations differ in the last bit)."""
+    300 keys x 7 draws: its uniforms bitwise, float32 gumbels bitwise,
+    float64 ones within 2 ulps of ``max(1, |g|)`` (the two float64 ``log``
+    evaluations differ in the last bit)."""
     jkeys, keys = _keys(7, 300)
     with jax.enable_x64(dtype == np.float64):
         want = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (7,), dtype))(jkeys))
@@ -67,6 +68,8 @@ def test_gumbel_matches_jax(dtype):
     np.testing.assert_array_equal(u, want_u)
     got = prng.gumbel(keys, (7,), tdt).numpy()
     assert got.dtype == dtype and got.shape == (300, 7)
+    if dtype == np.float32:
+        np.testing.assert_array_equal(got, want)
     eps = np.finfo(dtype).eps
     assert np.all(np.abs(got - want) <= 2 * eps * np.maximum(1.0, np.abs(want)))
 
@@ -105,7 +108,7 @@ def _a2c_margins(monkeypatch):
 
 def test_a2c_seeded_run_is_the_jax_run(monkeypatch):
     """Scenario 0, batch 16, rollout 8, seed 0: ``init_theta`` equals the
-    JAX ``init_theta(PRNGKey(0))`` (the JAX ``run(iters=0)``) at rtol 1e-6,
+    JAX ``init_theta(PRNGKey(0))`` (the JAX ``run(iters=0)``) bitwise,
     and ``run(iters=2)``'s history the JAX example's at rtol 1e-5, every
     sampled action's margin wider than ``MARGIN``."""
     kw = dict(scenario=0, batch=16, rollout_len=8)
@@ -117,8 +120,7 @@ def test_a2c_seeded_run_is_the_jax_run(monkeypatch):
     theta = theta_to_numpy(run.init_theta(seed=0))
     for head in ("policy", "value"):
         for got, want in zip(theta[head], jtheta[head], strict=True):
-            np.testing.assert_allclose(got["w"], np.asarray(want["w"]), rtol=1e-6,
-                                       atol=F32_EPS * np.abs(want["w"]).max())
+            np.testing.assert_array_equal(got["w"], np.asarray(want["w"]))
             np.testing.assert_array_equal(got["b"], np.asarray(want["b"]))
 
     gaps = _a2c_margins(monkeypatch)
@@ -169,7 +171,7 @@ def _es_margins(run):
 @pytest.mark.parametrize("continuous", [False, True], ids=["discrete", "continuous"])
 def test_es_seeded_run_is_the_jax_run(continuous):
     """Population 8, 100 steps, seed 0: ``theta0`` (the JAX ``run(gens=0)``)
-    and the first generation's noise at rtol 1e-6, and a 2-generation run's
+    and the first generation's noise bitwise, and a 2-generation run's
     history and parameters at rtol 1e-5.  Ranks: equal returns tie on both
     sides (the same actions give the same sums) and stable sorts break them
     by position; every gap between distinct returns exceeds ``MARGIN`` of
@@ -182,11 +184,10 @@ def test_es_seeded_run_is_the_jax_run(continuous):
         jeps = jax.random.normal(jax.random.fold_in(jax.random.PRNGKey(0), 1000),
                                  (4, jrun.dim), jnp.float32)
     run = build_es(**kw, device="cpu")
-    np.testing.assert_allclose(run.initial_theta(0).numpy(), np.asarray(jtheta0), rtol=1e-6,
-                               atol=0.01 * F32_EPS)
+    np.testing.assert_array_equal(run.initial_theta(0).numpy(), np.asarray(jtheta0))
     eps = run.noise(prng.fold_in(prng.key(0), 1000)).numpy()
     assert eps.shape == (8, run.dim)
-    np.testing.assert_allclose(eps[:4], np.asarray(jeps), rtol=1e-6, atol=F32_EPS)
+    np.testing.assert_array_equal(eps[:4], np.asarray(jeps))
     np.testing.assert_array_equal(eps[4:], -eps[:4])
 
     returns = _es_margins(run)
