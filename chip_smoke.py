@@ -64,7 +64,12 @@ which fails the run on error:
               sorted costs).  24 steps each, but the float32 ``BatchedMPC``'s
               6.  Depth cuts for the time limit when phases 8-10 came in:
               ``SuiteMPC`` from 48 steps, the float32 ``BatchedMPC`` from 24.
-6. training   ``pymgrid_tpu_torch.examples`` at the published widths: A2C on
+6. training   ``pymgrid_tpu_torch.examples`` at the published widths, both
+              stepped by optax's Adam (``utils.optax_adam.Adam``): first
+              that optimizer alone, one float32 gradient stream over A2C's
+              and ES's parameters for 12 steps, ``torch.equal`` to the CPU
+              after every step, one step timed beside ``torch.optim.Adam``;
+              A2C on
               scenario 1 (4096 replicas x 128-step rollouts, MLP 64-64,
               entropy 0.02): one iteration with fed actions held against the
               CPU float32 iteration at rtol 1e-4 (loss, updated parameters),
@@ -77,7 +82,8 @@ which fails the run on error:
               8758 steps): the population's returns at a fixed theta held
               against the CPU float32 run, ``theta0`` and the first
               generation's noise ``torch.equal`` to the CPU's, 2
-              generations timed; ``entry.dryrun_multichip(1)`` over NCCL,
+              generations timed (ms per generation);
+              ``entry.dryrun_multichip(1)`` over NCCL,
               its loss and mean return against the CPU's at rtol 1e-5.
 7. kernels    the kernel against its plain PyTorch version on the card,
               bitwise (``torch.equal``): at the main-path shape, on all 25
@@ -91,7 +97,9 @@ which fails the run on error:
               key), ``prng.gumbel`` and ``prng.categorical`` (float32) over
               65536 split keys, the float32 draws ``torch.equal`` to the
               CPU's, float64 equal in ``log1p``'s rational and its other
-              differing elements counted, the draws and XLA's ``log1p`` and
+              differing elements counted, each one where ``log1p`` differs
+              between the devices (the root is IEEE's on both), the draws
+              and XLA's ``log1p`` and
               ``log`` expansions timed beside ``torch.log1p`` and
               ``torch.log``; the suite's collect rollout with randomized restarts
               (25 x 1024 x 20, float32; dones bitwise vs the CPU, device
@@ -835,13 +843,91 @@ def phase_saa(device, n_steps=24, n_samples=10, scenario=0, seed=0):
             "picks": chosen.tolist()}
 
 
+def _gradient_stream(shapes, n_steps, seed):
+    """Float32 gradients per step and parameter: normals times ``10**k``,
+    ``k`` uniform in ``[-30, 3]`` per entry, a tenth of the entries zero, the
+    last parameter's all zero; and the starting parameters."""
+    rng = np.random.default_rng(seed)
+    stream = []
+    for _ in range(n_steps):
+        grads = []
+        for shape in shapes:
+            g = rng.standard_normal(shape) * 10.0 ** rng.uniform(-30, 3, shape)
+            g[rng.random(shape) < 0.1] = 0.0
+            grads.append(g.astype(np.float32))
+        grads[-1][:] = 0.0
+        stream.append(grads)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes], stream
+
+
+def phase_adam(device, n_steps=12, seed=0, lr=3e-4, iters=20, trace_dir=None):
+    """The port's ``optax.adam`` (``pymgrid_tpu_torch.utils.optax_adam.Adam``)
+    on the card against the CPU: one float32 gradient stream
+    (:func:`_gradient_stream`) over A2C's parameters at the published width
+    (scenario 1, MLP 64-64), ES's flat vector (scenario 0, continuous,
+    hidden 32) and an untouched bias, ``n_steps`` steps, the parameters
+    ``torch.equal`` after every step.  On the card also the CUDA-event
+    milliseconds of one step over A2C's parameters beside
+    ``torch.optim.Adam``'s (its default multi-tensor path) on the same
+    parameters and gradients; with ``trace_dir`` also the device events and
+    busy time of one step of the port's under ``utils.profiling.trace``."""
+    import torch
+
+    from pymgrid_tpu_torch.utils.profiling import device_summary, trace
+
+    from pymgrid_tpu_torch.examples.train_es import build_es
+    from pymgrid_tpu_torch.examples.train_rl import build_training
+    from pymgrid_tpu_torch.utils.optax_adam import Adam
+
+    a2c = [tuple(p.shape) for p in build_training(scenario=1, batch=1, rollout_len=1,
+                                                  device="cpu").init_theta().parameters()]
+    es_dim = build_es(scenario=0, pop=2, hidden=32, n_steps=1, continuous=True,
+                      device="cpu").dim
+    params, stream = _gradient_stream(a2c + [(es_dim,), (64,)], n_steps, seed)
+
+    def run(dev):
+        tparams = [torch.nn.Parameter(torch.tensor(x, device=dev)) for x in params]
+        opt, history = Adam(tparams, lr), []
+        for grads in stream:
+            for p, g in zip(tparams, grads):
+                p.grad = torch.as_tensor(g, device=dev)
+            opt.step()
+            history.append(torch.cat([p.detach().reshape(-1) for p in tparams]).cpu())
+        return tparams, history
+
+    tparams, got = run(device)
+    _, want = run("cpu")
+    for step, (g, w) in enumerate(zip(got, want)):
+        _check(torch.equal(g, w), f"Adam step {step} on the card differs from the CPU's at "
+                                  f"{int((g != w).sum())} of {w.numel()} parameters")
+    _check(torch.equal(got[-1][-64:], torch.as_tensor(params[-1])),
+           "Adam moved a parameter whose gradient is zero")
+    out = {"n_steps": n_steps, "n_params": want[0].numel(), "a2c_params": sum(
+        int(np.prod(s)) for s in a2c)}
+    if torch.device(device).type == "cuda":
+        a2c_params = tparams[:len(a2c)]
+        ours, lib = Adam(a2c_params, lr), torch.optim.Adam(a2c_params, lr=lr)
+        out["ms"] = _event_ms(ours.step, iters)
+        out["torch_adam_ms"] = _event_ms(lib.step, iters)
+    if trace_dir is not None:
+        opt = Adam(tparams, lr)
+        opt.step()
+        with trace(str(trace_dir), device) as prof:
+            opt.step()
+        summary = device_summary(prof)
+        out["events"], out["busy_ms"] = summary["kernels"], summary["busy_ms"]
+    return out
+
+
 def _a2c_step_fed(run, actions, device):
     """One A2C iteration of ``run`` with fed actions from the seed-0
     weights; returns the loss and the updated parameters (on the CPU)."""
     import torch
 
+    from pymgrid_tpu_torch.utils.optax_adam import Adam
+
     theta = run.init_theta(seed=0)
-    adam = torch.optim.Adam(theta.parameters(), lr=run.lr)
+    adam = Adam(theta.parameters(), lr=run.lr)
     *_, loss, _ = run.train_step(theta, adam, *run.init_envs(), actions=actions)
     return loss.item(), torch.cat([p.detach().reshape(-1) for p in theta.parameters()]).cpu()
 
@@ -856,6 +942,7 @@ def _a2c_step_sampled(run, seed=0):
     import torch
 
     from pymgrid_tpu_torch.core import prng
+    from pymgrid_tpu_torch.utils.optax_adam import Adam
 
     drawn, categorical = [], prng.categorical
 
@@ -866,7 +953,7 @@ def _a2c_step_sampled(run, seed=0):
         return drawn[-1][0]
 
     theta = run.init_theta(seed=0)
-    adam = torch.optim.Adam(theta.parameters(), lr=run.lr)
+    adam = Adam(theta.parameters(), lr=run.lr)
     keys = prng.fold_in(run.rollout_keys(seed), 0)
     prng.categorical = recorded
     try:
@@ -897,6 +984,7 @@ def phase_a2c(device, scenario=1, batch=4096, rollout_len=128, iters=5, entropy_
 
     from pymgrid_tpu_torch.core import prng
     from pymgrid_tpu_torch.examples.train_rl import build_training
+    from pymgrid_tpu_torch.utils.optax_adam import Adam
     from pymgrid_tpu_torch.utils.profiling import Throughput, device_summary, trace
 
     kw = dict(scenario=scenario, batch=batch, rollout_len=rollout_len,
@@ -933,7 +1021,7 @@ def phase_a2c(device, scenario=1, batch=4096, rollout_len=128, iters=5, entropy_
            "rtol": rtol, "tie": tie, "seconds": meter.elapsed, "steps_per_s": meter.steps_per_sec,
            "ms_per_iter": meter.elapsed / iters * 1e3, "history": history}
     if trace_dir is not None:
-        adam = torch.optim.Adam(theta.parameters(), lr=run.lr)
+        adam = Adam(theta.parameters(), lr=run.lr)
         states, obs = run.init_envs(seed=1)
         keys = prng.fold_in(run.rollout_keys(seed=1), 0)
         with trace(str(trace_dir), device) as prof:
@@ -991,8 +1079,8 @@ def phase_es(device, scenario=0, pop=256, hidden=32, n_steps=1000, gens=2, rtol=
     _check(len(history) == gens and bool(np.isfinite(history).all()),
            f"ES history not finite: {history}")
     return {"max_rel_vs_cpu": rel, "draws_max_abs_vs_cpu": draws_err, "seconds": meter.elapsed,
-            "steps_per_s": meter.steps_per_sec, "history": history,
-            "rbc": run.rbc_baseline()}
+            "ms_per_gen": meter.elapsed / gens * 1e3, "steps_per_s": meter.steps_per_sec,
+            "history": history, "rbc": run.rbc_baseline()}
 
 
 def phase_dryrun(device, rtol=1e-5):
@@ -1058,8 +1146,9 @@ def phase_draws(device, n_keys=65536, window=(23, 4), n_actions=5, seed=0, iters
     ``torch.equal`` to the CPU's: every step of XLA's ``log`` and ``log1p``
     is its own op, so it rounds once on either device.  Float64 normals are
     equal where ``log1p`` takes its rational (``u**2 < sqrt(2) - 1``); off
-    it, ``torch.log`` and ``torch.sqrt`` may round differently on the two
-    devices, and the count of differing elements is returned.  On the card
+    it, ``torch.log`` may round differently on the two devices (the root is
+    IEEE's on both, ``prng._sqrt_f64``): every differing normal is one whose
+    ``log1p`` differs between them, and both counts are returned.  On the card
     also the CUDA-event milliseconds of the float32 normal and gumbel draws,
     and of ``_xla_log1p`` and ``_xla_log_f32`` beside the single
     ``torch.log1p`` and ``torch.log`` they replace, on the same inputs."""
@@ -1088,8 +1177,14 @@ def phase_draws(device, n_keys=65536, window=(23, 4), n_actions=5, seed=0, iters
     _check(not bool((differ & rational).any()),
            f"draws: {int((differ & rational).sum())} float64 normals in log1p's rational "
            f"differ from the CPU's")
+    arg = -u * u
+    log1p_differ = prng._xla_log1p(arg.to(device)).cpu() != prng._xla_log1p(arg)
+    _check(not bool((differ & ~log1p_differ).any()),
+           f"draws: {int((differ & ~log1p_differ).sum())} float64 normals differ from the "
+           f"CPU's where their log1p agrees")
     out = {"n_keys": n_keys, "normal_elements": want["normal64"].numel(),
-           "normal64_differ": int(differ.sum()), "normal64_off_rational": int((~rational).sum())}
+           "normal64_differ": int(differ.sum()), "normal64_off_rational": int((~rational).sum()),
+           "normal64_log1p_differ": int(log1p_differ.sum())}
     if torch.device(device).type == "cuda":
         keys = prng.split(prng.key(seed, device), n_keys)
         x = 2 * torch.rand((n_keys,) + window, device=device, generator=torch.Generator(
@@ -1497,7 +1592,16 @@ def main():
           f"hour), cost {saa['sampled_cost']:.4f}, picks {saa['picks']} at the sorted median "
           f"{tag}", flush=True)
 
-    # ---- training: A2C, ES, the data-parallel dryrun (no kernel) ---------
+    # ---- training: Adam, A2C, ES, the data-parallel dryrun (no kernel) ---
+    with tempfile.TemporaryDirectory(prefix=".adam-trace-", dir=REPO) as trace_dir:
+        ad = phase_adam(device, trace_dir=trace_dir)
+    print(f"training/adam: optax.adam's steps (utils.optax_adam.Adam), {ad['n_steps']} steps "
+          f"of one float32 gradient stream over {ad['n_params']} parameters (A2C's, ES's, one "
+          f"untouched): torch.equal to the CPU after every step; one step over A2C's "
+          f"{ad['a2c_params']} parameters {ad['ms']:.4f} ms (CUDA events, mean of 20), "
+          f"torch.optim.Adam {ad['torch_adam_ms']:.4f} ms; one step over all "
+          f"{ad['n_params']} under torch.profiler: {ad['events']} device events, busy "
+          f"{ad['busy_ms']:.4f} ms {tag}", flush=True)
     with tempfile.TemporaryDirectory(prefix=".a2c-trace-", dir=REPO) as trace_dir:
         a2c = phase_a2c(device, trace_dir=trace_dir)
     print(f"training/a2c: scenario 1, 4096 x 128, 5 iterations in {a2c['seconds']:.4f} s, "
@@ -1517,7 +1621,8 @@ def main():
           f"{a2c['idle_share_unprofiled']:.4f}) {tag}", flush=True)
     es = phase_es(device)
     print(f"training/es: scenario 0 continuous, pop 256 x 1000 steps (depth cut from 8758), "
-          f"2 generations in {es['seconds']:.4f} s, {es['steps_per_s']:.6g} env-steps/s; "
+          f"2 generations in {es['seconds']:.4f} s ({es['ms_per_gen']:.2f} ms per generation), "
+          f"{es['steps_per_s']:.6g} env-steps/s; "
           f"best-of-pop {es['history']} vs RBC {es['rbc']:.2f}; population returns vs CPU "
           f"float32 max rel {es['max_rel_vs_cpu']:.3e} {tag}", flush=True)
     print(f"training/es draws: theta0 and the first generation's noise on the card "
@@ -1536,8 +1641,10 @@ def main():
     ms = dr["ms"]
     print(f"keys/draws: {dr['n_keys']} split keys: float32 normals (23 x 4 per key), gumbels "
           f"(5 per key) and categorical draws torch.equal to the CPU's; float64 normals: "
-          f"{dr['normal64_differ']} of {dr['normal_elements']} differ from the CPU's, all off "
-          f"log1p's rational ({dr['normal64_off_rational']} draws there) {tag}", flush=True)
+          f"{dr['normal64_differ']} of {dr['normal_elements']} differ from the CPU's (435 in "
+          f"earlier runs, before the IEEE float64 root), all off log1p's rational "
+          f"({dr['normal64_off_rational']} draws there) and all where log1p differs "
+          f"({dr['normal64_log1p_differ']} inputs) {tag}", flush=True)
     print(f"keys/draws timing (CUDA events, mean of 20): normal float32 {ms['normal32']:.4f} ms, "
           f"gumbel float32 {ms['gumbel32']:.4f} ms; on {dr['normal_elements']} float32 "
           f"elements _xla_log1p {ms['xla_log1p32']:.4f} ms vs torch.log1p "

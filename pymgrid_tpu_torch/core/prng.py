@@ -29,11 +29,12 @@ CPU flush of subnormals to zero at their inputs.  Keys, bits, uniforms,
 integers and the float32 normals, gumbels and categorical draws are bitwise
 equal to ``jax.random`` on the CPU (XLA compiled without FMA contraction, as
 ``--xla_cpu_max_isa=AVX`` compiles it), and the same bits on a CUDA device,
-where every op rounds once.  Float64 normals are bitwise where ``log1p``
-takes its rational (``u**2 < sqrt(2) - 1``); elsewhere they use
-``torch.log`` and ``torch.sqrt``, which can differ in the last bit from the
-libm ``log`` and the IEEE root XLA uses (tests/test_torch_prng.py bounds
-the gap).
+where every op rounds once.  Float64 erfinv takes the correctly rounded
+root, as XLA does (``_sqrt_f64``).  Float64 normals are bitwise where
+``log1p`` takes its rational (``u**2 < sqrt(2) - 1``); elsewhere ``log1p``
+is ``torch.log(1 + x)``, which can differ in the last bit from the libm
+``log`` XLA uses, and only there do the normals differ
+(tests/test_torch_prng.py bounds the gap).
 """
 import math
 
@@ -371,6 +372,50 @@ def _sqrt_f32(x):
     return s
 
 
+# Veltkamp's splitter for float64: ``(2**27 + 1) * v`` splits ``v`` into two
+# halves of 26 bits each whose products are exact.
+_VELTKAMP = 134217729.0
+
+
+def _two_product(a, b):
+    """``a * b`` as ``p + q`` with ``p = fl(a * b)`` and ``q`` its exact
+    rounding error (Dekker's product over Veltkamp's split, no FMA); exact
+    for float64 operands whose products neither overflow nor underflow."""
+    def halves(v):
+        c = v * _VELTKAMP
+        hi = c - (c - v)
+        return hi, v - hi
+
+    p = a * b
+    (ah, al), (bh, bl) = halves(a), halves(b)
+    return p, (((ah * bh - p) + ah * bl) + al * bh) + al * bl
+
+
+def _sqrt_f64(x):
+    """The correctly rounded float64 square root, as XLA's ``sqrt`` is, on
+    any device (the CPU torch's ``sqrt`` is off by an ulp at some inputs;
+    on the card it is IEEE's already and this changes nothing).  ``x`` is
+    scaled by an even power of two into ``[2**-500, 2**500]``, where the
+    products below are exact; the root ``r`` is moved one ulp up where ``x
+    > r * next(r)`` and down where ``x <= prev(r) * r``, both compared
+    exactly through ``_two_product`` (``x - p`` is exact as ``p`` is near
+    ``x``).  For neighbours ``a < b``, ``a * b`` is their midpoint's square
+    less ``(b - a)**2 / 4``, which lies below the granularity of ``x - a *
+    b``: comparing ``x`` with ``a * b`` tells on which side of the midpoint
+    the root lies.  Zeros, negatives, ``inf`` and NaN are ``torch.sqrt``'s;
+    a subnormal is a real input, not zero."""
+    big, small = x > 2.0**500, x < 2.0**-500
+    xs = torch.where(big, x * 2.0**-600, torch.where(small, x * 2.0**600, x))
+    r = torch.sqrt(xs)
+    up, down = torch.nextafter(r, torch.full_like(r, np.inf)), torch.nextafter(r, r * 0.0)
+    p, q = _two_product(r, up)
+    r = torch.where(xs - p > q, up, r)
+    p, q = _two_product(down, r)
+    r = torch.where(xs - p <= q, down, r)
+    r = torch.where(big, r * 2.0**300, torch.where(small, r * 2.0**-300, r))
+    return torch.where((x > 0) & (x < np.inf), r, torch.sqrt(x))
+
+
 def erfinv(x):
     """XLA's ``erf_inv`` for float32 and float64 tensors."""
     dt = x.dtype
@@ -384,7 +429,7 @@ def erfinv(x):
     else:
         lt_6 = w < const(6.25)
         lt_16 = w < const(16.0)
-        sq = torch.sqrt(w)
+        sq = _sqrt_f64(w)
         w = torch.where(lt_6, w - const(3.125),
                         torch.where(lt_16, sq - const(3.25), sq - const(5.0)))
         n = len(_F64_LT_6_25)

@@ -3,8 +3,9 @@
 full-year return directly.
 
 Port of the repository's ``examples/train_es.py`` (OpenAI-style ES:
-antithetic perturbations, centered-rank shaping, Adam).  One generation
-evaluates the whole population as **one** engine batch (``C = 1``,
+antithetic perturbations, centered-rank shaping, and ``optax.adam``'s
+steps bit for bit through :class:`~pymgrid_tpu_torch.utils.optax_adam.Adam`).
+One generation evaluates the whole population as **one** engine batch (``C = 1``,
 ``B = pop``) whose members share the simulated time (one ``(1, 1)`` step), so
 every time row is read once per step for all of them; each member's MLP is a
 batched product over ``(pop, ...)`` weights.
@@ -46,8 +47,37 @@ from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.core.tables import ensure_tables
 from pymgrid_tpu_torch.envs import ContinuousMicrogridEnv, DiscreteMicrogridEnv
 from pymgrid_tpu_torch.examples.train_rl import start_states
+from pymgrid_tpu_torch.utils.optax_adam import Adam
 
 __all__ = ["build_es"]
+
+
+def _reciprocal(c):
+    """``1 / c`` in float32, as XLA folds a division by the constant ``c``
+    into a product (a Python float, exact in float32)."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+_XLA_WINDOW = 32     # rows per block of XLA's CPU tree-reduction rewrite
+
+
+def _xla_row_sum(x):
+    """``x.sum(0)`` in the order of XLA's CPU backend: up to 32 rows one
+    after another from zero; more rows are padded with zeros, evenly at both
+    ends, to a multiple of 32, each block of 32 rows is summed so, and the
+    block sums are summed the same way (XLA's tree-reduction rewrite into a
+    ``reduce-window``)."""
+    n = x.shape[0]
+    if n > _XLA_WINDOW:
+        pad = -n % _XLA_WINDOW
+        zeros = lambda k: x.new_zeros((k,) + x.shape[1:])
+        x = torch.cat([zeros(pad // 2), x, zeros(pad - pad // 2)])
+        x = x.view(-1, _XLA_WINDOW, *x.shape[1:]).transpose(0, 1)
+        return _xla_row_sum(_xla_row_sum(x))
+    total = x.new_zeros(x.shape[1:])
+    for row in x:
+        total = total + row
+    return total
 
 
 class ES:
@@ -159,11 +189,16 @@ class ES:
     def update(self, theta, optimizer, eps, returns):
         """The centered-rank ES update of ``theta`` (a leaf tensor that
         ``optimizer`` holds) from the population's ``eps`` (``(pop, dim)``)
-        and ``returns`` (``(pop,)``).  Ranks use stable sorts, as
-        ``jnp.argsort``."""
+        and ``returns`` (``(pop,)``), as XLA compiles the JAX example's
+        ``-(shaped[:, None] * eps).mean(axis=0) / sigma``: each division by
+        a constant (``pop - 1``, ``pop``, ``sigma``) a product with its
+        float32 reciprocal, the rows summed in XLA's order
+        (:func:`_xla_row_sum`), so the gradient is the JAX program's bit
+        for bit.  Ranks use stable sorts, as ``jnp.argsort``."""
         ranks = torch.argsort(torch.argsort(returns, stable=True), stable=True).float()
-        shaped = ranks / (self.pop - 1) - 0.5
-        theta.grad = -(shaped[:, None] * eps).mean(dim=0) / self.sigma
+        shaped = ranks * _reciprocal(self.pop - 1) - 0.5
+        mean = _xla_row_sum(shaped[:, None] * eps) * _reciprocal(self.pop)
+        theta.grad = -mean * _reciprocal(self.sigma)
         optimizer.step()
 
     def initial_theta(self, seed):
@@ -193,7 +228,7 @@ class ES:
         ``g`` keyed by ``fold_in(key(seed), 1000 + g)``; returns ``(theta,
         history)``, history the best return of each generation."""
         theta = self.initial_theta(seed).requires_grad_()
-        optimizer = torch.optim.Adam([theta], lr=self.lr)
+        optimizer = Adam([theta], lr=self.lr)
         key = prng.key(seed, self.device)
         history = []
         for g in range(gens):

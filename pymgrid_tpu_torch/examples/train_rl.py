@@ -14,7 +14,8 @@ training of an MLP policy on the discrete priority-list environment.
   (:func:`theta_from_jax`).
 * Only the MLP forwards carry gradients: the env step runs under
   ``torch.no_grad()``, as ``lax.stop_gradient`` cuts it in the JAX loss.
-* ``torch.optim.Adam(lr)``, whose defaults are ``optax.adam``'s.
+* :class:`~pymgrid_tpu_torch.utils.optax_adam.Adam`: ``optax.adam(lr)``'s
+  steps bit for bit, given the same gradients.
 * Data parallel over a :class:`~pymgrid_tpu_torch.parallel.distributed.BatchMesh`:
   each rank steps its rows of the global batch; after ``backward`` one
   ``all_reduce`` of the flattened gradient (with the loss and mean return)
@@ -49,6 +50,7 @@ from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy, make_rollo
 from pymgrid_tpu_torch.envs import DiscreteMicrogridEnv
 from pymgrid_tpu_torch.parallel.batched_env import BatchedDiscreteEnv
 from pymgrid_tpu_torch.parallel.distributed import all_reduce_mean, local_layout
+from pymgrid_tpu_torch.utils.optax_adam import Adam
 
 __all__ = ["build_training", "ActorCritic", "theta_from_jax", "theta_to_numpy",
            "reward_to_go", "start_states", "zero_action"]
@@ -264,7 +266,7 @@ class A2C:
 
     def __call__(self, iters=40, seed=0, log_every=10, theta=None, opt_state=None):
         """Train ``iters`` iterations; returns ``(theta, opt_state,
-        history)``, ``opt_state`` the ``torch.optim.Adam`` over ``theta``,
+        history)``, ``opt_state`` the :class:`Adam` over ``theta``,
         so that a continuation block resumes the Adam moments.  Every call
         keys its draws and resets its envs from ``seed``, as the JAX
         ``run``; iteration ``it`` folds ``it`` into the carried rollout
@@ -273,7 +275,7 @@ class A2C:
         if theta is None:
             theta = self.init_theta(seed)
         if opt_state is None:
-            opt_state = torch.optim.Adam(theta.parameters(), lr=self.lr)
+            opt_state = Adam(theta.parameters(), lr=self.lr)
         keys = self.rollout_keys(seed)
         states, obs = self.init_envs(seed)
         history, pending = [], []

@@ -57,11 +57,15 @@ def trace(log_dir=None, device="cuda"):
 def device_summary(prof):
     """``{"kernels": n, "busy_ms": t}`` of a finished :func:`trace`: the
     device events it recorded (kernels, copies, fills) and the union of
-    their intervals.  Both are 0 for a CPU capture."""
+    their intervals.  A user annotation's span on the device (a
+    ``record_function`` range, such as the one every optimizer's ``step``
+    opens) is not work and covers the gaps between its kernels: it is left
+    out.  Both are 0 for a CPU capture."""
     from torch.autograd import DeviceType
 
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     busy, end = 0.0, -np.inf
     for start, stop in spans:
         if stop > end:

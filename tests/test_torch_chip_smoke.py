@@ -107,9 +107,18 @@ def test_a2c_phase_cpu(tmp_path):
     assert out["device_events"] == 0 and out["idle_share"] == 1.0
 
 
+def test_adam_phase_cpu(tmp_path):
+    """The Adam phase: the CPU against itself, every step equal; no timing
+    off the card, and a CPU capture records no device events."""
+    out = chip_smoke.phase_adam("cpu", n_steps=3, trace_dir=tmp_path / "trace")
+    assert out["n_steps"] == 3 and out["n_params"] > out["a2c_params"] > 0 and "ms" not in out
+    assert out["events"] == 0 and out["busy_ms"] == 0.0
+
+
 def test_es_phase_cpu():
     out = chip_smoke.phase_es("cpu", pop=6, hidden=4, n_steps=15)
     assert out["max_rel_vs_cpu"] == 0.0 and len(out["history"]) == 2
+    assert out["ms_per_gen"] > 0
     assert out["draws_max_abs_vs_cpu"] == 0.0
     assert out["rbc"] < 0
 
@@ -125,6 +134,7 @@ def test_draws_phase_cpu():
     out = chip_smoke.phase_draws("cpu", n_keys=64)
     assert out["normal_elements"] == 64 * 23 * 4 and out["normal64_differ"] == 0
     assert 0 < out["normal64_off_rational"] < out["normal_elements"] and "ms" not in out
+    assert out["normal64_log1p_differ"] == 0
 
 
 def test_random_policy_phase_cpu():

@@ -36,6 +36,7 @@ from pymgrid_tpu_torch.parallel import (  # noqa: E402
 )
 from pymgrid_tpu_torch.parallel import distributed as dist  # noqa: E402
 from pymgrid_tpu_torch.parallel import suite  # noqa: E402
+from pymgrid_tpu_torch.utils.optax_adam import Adam  # noqa: E402
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -246,7 +247,7 @@ def _worker(rank, port, ckpt_dir):
             results = []
             for run in (run2, run1):
                 theta = run.init_theta(seed=0)
-                adam = torch.optim.Adam(theta.parameters(), lr=run.lr)
+                adam = Adam(theta.parameters(), lr=run.lr)
                 if "seed" in feed:
                     step_kw = {"keys": prng.fold_in(run.rollout_keys(feed["seed"]), 0)}
                 else:

@@ -6,15 +6,19 @@ Keys, splits, raw bits, uniforms and integers are bitwise.  ``erfinv``'s
 ``log``, ``log1p``, ``erfinv``, normals, gumbels and categorical draws are
 bitwise too (XLA compiled without FMA contraction, as tests/conftest.py sets
 ``--xla_cpu_max_isa=AVX``; its runtime reads subnormals as zero, and so does
-the port's expansion).  Float64 normals are bitwise where ``log1p`` takes
-Cephes' rational (``u**2 < sqrt(2) - 1``).  Elsewhere ``log1p`` is
-``torch.log(1 + x)`` against the libm ``log`` XLA calls, and erfinv's root
-``torch.sqrt`` against XLA's correctly rounded one: each pair is faithfully
-rounded, so each differs by at most an ulp, and
-``test_erfinv_float64_ulp_envelope`` shows that such 1-ulp changes move
-float64 ``erfinv`` and ``sqrt(2) * erfinv`` by at most ``F64_ULPS``.  Both
-layouts assume JAX's partitionable threefry, the installed default.
+the port's expansion).  Float64 ``erfinv`` takes the correctly rounded root
+(``prng._sqrt_f64``), as XLA does.  Float64 normals are bitwise where
+``log1p`` takes Cephes' rational (``u**2 < sqrt(2) - 1``).  Elsewhere
+``log1p`` is ``torch.log(1 + x)`` against the libm ``log`` XLA calls: both
+are faithfully rounded, so they differ by at most an ulp, every float64 draw
+that differs from JAX's is one where the two ``log1p`` differ, and
+``test_erfinv_float64_ulp_envelope`` shows that such a 1-ulp change moves
+float64 ``erfinv`` by at most ``F64_ERFINV_ULPS`` and ``sqrt(2) * erfinv``
+by at most ``F64_ULPS``.  Both layouts assume JAX's partitionable threefry,
+the installed default.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,11 +26,13 @@ import pytest
 import torch
 
 from pymgrid_tpu_torch.core import prng
+from pymgrid_tpu_torch.tools import libm_parity
 
 torch.set_num_threads(1)
 
 SEEDS = [0, 1, 42, 2**31 - 1, 123456789]
 # float64 erfinv and normals off Cephes' rational, in ulps (module docstring)
+F64_ERFINV_ULPS = 4
 F64_ULPS = 5
 LOG1P_SMALL = np.sqrt(2) - 1
 
@@ -37,12 +43,20 @@ def _ulps(got, want):
     return np.abs(got.view(ints).astype(np.int64) - want.view(ints).astype(np.int64))
 
 
-def _assert_f64_normals(got, want, u):
-    """Float64 draws: bitwise where ``log1p`` takes its rational, within
-    ``F64_ULPS`` elsewhere."""
+def _assert_f64_normals(got, want, u, ulps=F64_ULPS):
+    """Float64 draws of ``u`` (``erfinv(u)`` or ``sqrt(2)`` times it):
+    bitwise where ``log1p`` takes its rational; each draw that differs is
+    one where the port's ``log1p(-u * u)`` differs from ``jnp.log1p``, so
+    it lies off the rational, and it is within ``ulps``.  Returns the count
+    of differing draws."""
     small = u * u < LOG1P_SMALL
     np.testing.assert_array_equal(got[small], want[small])
-    assert _ulps(got[~small], want[~small]).max(initial=0) <= F64_ULPS
+    differ = got != want
+    arg = -torch.from_numpy(u) * torch.from_numpy(u)
+    log1p_differs = prng._xla_log1p(arg).numpy() != np.asarray(jnp.log1p(jnp.asarray(arg.numpy())))
+    assert not (differ & ~log1p_differs).any()
+    assert _ulps(got[differ], want[differ]).max(initial=0) <= ulps
+    return int(differ.sum())
 
 
 def test_partitionable_threefry_is_the_layout():
@@ -96,7 +110,7 @@ def test_uniform_bitwise_and_normal_close(dtype):
     if dtype == np.float32:
         np.testing.assert_array_equal(got, want)
     else:
-        _assert_f64_normals(got, want, u)
+        assert _assert_f64_normals(got, want, u) <= (u * u >= LOG1P_SMALL).sum()
 
 
 def _window_uniforms(key, shape, dtype):
@@ -186,35 +200,67 @@ def test_erfinv_matches_xla_polynomials():
         if dtype == np.float32:
             np.testing.assert_array_equal(got, want)
         else:
-            _assert_f64_normals(got, want, x)
+            _assert_f64_normals(got, want, x, F64_ERFINV_ULPS)
         edge = torch.tensor([-1.0, 1.0], dtype=torch.from_numpy(x).dtype)
         assert torch.equal(prng.erfinv(edge), torch.erfinv(edge))
 
 
 def test_erfinv_float64_ulp_envelope(monkeypatch):
-    """Where float64 ``erfinv`` leaves Cephes' rational, its ``log1p`` and
-    its root may each differ from XLA's by an ulp (module docstring).  Every
-    combination of such 1-ulp changes moves ``erfinv`` and ``sqrt(2) *
-    erfinv`` by at most ``F64_ULPS`` on a dense grid of that range, the
-    branch points at ``w = 6.25`` and ``16`` included: the bound is the
-    polynomials', not a host's."""
+    """Where float64 ``erfinv`` leaves Cephes' rational, its ``log1p`` may
+    differ from XLA's by an ulp (module docstring; its root is IEEE's).
+    Such a change moves ``erfinv`` by at most ``F64_ERFINV_ULPS`` and
+    ``sqrt(2) * erfinv`` by at most ``F64_ULPS`` on a dense grid of that
+    range, the branch points at ``w = 6.25`` and ``16`` included: the bound
+    is the polynomials', not a host's."""
     x = np.concatenate([np.linspace(0.64, 1, 2**19, endpoint=False),
                         1 - np.geomspace(1e-16, 1e-3, 2**17)])
     x = np.concatenate([x, -x])
-    log1p, sqrt = prng._xla_log1p, torch.sqrt
+    log1p = prng._xla_log1p
     base = prng.erfinv(torch.from_numpy(x)).numpy()
+    for toward in (np.inf, -np.inf):
+        monkeypatch.setattr(prng, "_xla_log1p",
+                            lambda t: torch.nextafter(log1p(t), torch.full_like(t, toward)))
+        got = prng.erfinv(torch.from_numpy(x)).numpy()
+        monkeypatch.undo()
+        assert _ulps(got, base).max() <= F64_ERFINV_ULPS
+        assert _ulps(np.sqrt(2) * got, np.sqrt(2) * base).max() <= F64_ULPS
 
-    def nudged(fn, toward):
-        return lambda t: torch.nextafter(fn(t), torch.full_like(t, toward))
 
-    for dl in (None, np.inf, -np.inf):
-        for ds in (None, np.inf, -np.inf):
-            monkeypatch.setattr(prng, "_xla_log1p", log1p if dl is None else nudged(log1p, dl))
-            monkeypatch.setattr(torch, "sqrt", sqrt if ds is None else nudged(sqrt, ds))
-            got = prng.erfinv(torch.from_numpy(x)).numpy()
-            monkeypatch.undo()
-            assert _ulps(got, base).max() <= F64_ULPS
-            assert _ulps(np.sqrt(2) * got, np.sqrt(2) * base).max() <= F64_ULPS
+def _sqrt_f64_inputs():
+    """400,000 float64 inputs log-uniform on ``[e**-20, e**5]`` (erfinv's
+    ``w`` lies there), 400,000 bit patterns over every positive finite
+    float64, subnormals included, and the edge values."""
+    rng = np.random.default_rng(0)
+    tiny = np.finfo(np.float64).tiny
+    edge = [0.0, -0.0, np.inf, -np.inf, np.nan, -1.0, 5e-324, tiny, tiny / 2,
+            np.finfo(np.float64).max, 1.0, np.nextafter(1.0, 0), np.nextafter(1.0, 2), 2.0,
+            4.0, np.nextafter(4.0, 0), 6.25, 16.0, 2.0**500, np.nextafter(2.0**500, 0),
+            np.nextafter(2.0**500, np.inf), 2.0**-500, np.nextafter(2.0**-500, 0), 1e-310]
+    patterns = rng.integers(1, 0x7FF0000000000000, 400_000, dtype=np.int64).view(np.float64)
+    return np.concatenate([np.exp(rng.uniform(-20, 5, 400_000)), patterns, edge])
+
+
+@pytest.mark.parametrize("off", [None, np.inf, -np.inf], ids=["torch", "ulp_up", "ulp_down"])
+def test_sqrt_f64_is_ieee(monkeypatch, off):
+    """``_sqrt_f64`` equals ``math.sqrt`` (the IEEE root, as XLA's) at every
+    input, zeros' signs, infinities and NaNs included, starting from
+    ``torch.sqrt`` or from the IEEE root moved an ulp either way (a root it
+    starts from may be an ulp off, as the CPU torch's is at some inputs)."""
+    x = _sqrt_f64_inputs()
+    want = np.array([math.sqrt(v) if not v < 0 else np.nan for v in x])
+    if off is not None:
+        def sqrt(t):
+            with np.errstate(invalid="ignore"):
+                ieee = torch.from_numpy(np.sqrt(t.numpy()))
+            finite = (t > 0) & (t < np.inf)
+            return torch.where(finite, torch.nextafter(ieee, torch.full_like(t, off)), ieee)
+
+        monkeypatch.setattr(torch, "sqrt", sqrt)
+    got = prng._sqrt_f64(torch.from_numpy(x)).numpy()
+    monkeypatch.undo()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.int64), want[~nan].view(np.int64))
 
 
 @pytest.mark.parametrize("logits", ["normal", "equal"])
@@ -293,3 +339,15 @@ def test_randint_per_element_bounds(dtype):
     want = jax.vmap(lambda k, a: jax.random.randint(k, (), a, 9000, jdt))(
         jkeys, jnp.asarray(np.repeat(lo[::10], 10), jdt))
     np.testing.assert_array_equal(rows.numpy().reshape(-1), np.asarray(want))
+
+
+def test_libm_parity_tool():
+    """``tools/libm_parity.py`` at a small size: the port's float64 root is
+    the IEEE root at every input, and JAX's float64 ``log`` is the C
+    library's (what the tool's ``log`` counts stand for)."""
+    out = libm_parity.count(n=20_000, n_exact=2_000, counts=2_000)
+    assert out["sqrt_f64_vs_ieee"] == 0 and out["n"] == 20_000
+    assert all(isinstance(v, int) and v >= 0 for v in out.values())
+    x = libm_parity.float64_inputs(20_000)
+    np.testing.assert_array_equal(np.asarray(jnp.log(jnp.asarray(x))),
+                                  np.array([math.log(v) for v in x]))

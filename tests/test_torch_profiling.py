@@ -108,13 +108,14 @@ def test_profiler_trace_default_directory(tmp_path, monkeypatch):
 
 def test_device_summary_unions_device_intervals():
     """Busy time is the union of the device events' intervals (us): two
-    overlapping kernels and a separate copy; host events do not count."""
-    def event(device_type, start, end):
-        return SimpleNamespace(device_type=device_type,
+    overlapping kernels and a separate copy; host events and a user
+    annotation's span on the device (an optimizer step's) do not count."""
+    def event(device_type, start, end, annotation=False):
+        return SimpleNamespace(device_type=device_type, is_user_annotation=annotation,
                                time_range=SimpleNamespace(start=start, end=end))
 
     events = [event(DeviceType.CUDA, 0, 10), event(DeviceType.CUDA, 5, 12),
               event(DeviceType.CPU, 0, 100), event(DeviceType.CUDA, 20, 30),
-              event(DeviceType.CUDA, 21, 25)]
+              event(DeviceType.CUDA, 21, 25), event(DeviceType.CUDA, 0, 100, annotation=True)]
     prof = SimpleNamespace(events=lambda: events)
     assert device_summary(prof) == {"kernels": 4, "busy_ms": 0.022}

@@ -7,7 +7,8 @@ flat vector as it is.  Tolerances, float32: MLP outputs rtol 1e-6; the A2C
 loss, gradient and the parameters after one Adam step rtol 1e-5 (the two
 sides sum in other orders; a parameter or gradient entry near 0 is held to
 an absolute 1e-5 of the Adam step, or 1e-7); evaluation returns rtol 1e-6
-(equal rewards per step, summed in another order); ES returns rtol 1e-5.
+(equal rewards per step, summed in another order); ES returns rtol 1e-5;
+ES's rank-shaped gradient and its Adam step from the same returns bitwise.
 """
 import sys
 from pathlib import Path
@@ -26,13 +27,14 @@ from pymgrid_tpu.core.rollout import make_table_policy as jax_table_policy
 from pymgrid_tpu.core.spec import extract_spec as jax_extract_spec
 from pymgrid_tpu.core.tables import ensure_tables as jax_ensure_tables
 from pymgrid_tpu.envs import DiscreteMicrogridEnv as JaxDiscreteMicrogridEnv
-from pymgrid_tpu_torch.examples.train_es import build_es
+from pymgrid_tpu_torch.examples.train_es import _xla_row_sum, build_es
 from pymgrid_tpu_torch.examples.train_rl import (
     build_training,
     reward_to_go,
     theta_from_jax,
     theta_to_numpy,
 )
+from pymgrid_tpu_torch.utils.optax_adam import Adam
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from examples.train_es import build_es as jax_build_es  # noqa: E402
@@ -182,7 +184,7 @@ def test_a2c_loss_grad_and_adam_match_jax(scenario):
     updates, _ = optimizer.update(jgrads, optimizer.init(jax.tree.map(jnp.asarray, theta)))
     jtheta = optax.apply_updates(jax.tree.map(jnp.asarray, theta), updates)
     module = theta_from_jax(theta, device="cpu")
-    adam = torch.optim.Adam(module.parameters(), lr=LR)
+    adam = Adam(module.parameters(), lr=LR)
     *_, step_loss, step_ret = run.train_step(module, adam, *run.init_envs(), actions=actions)
     assert step_loss.item() == loss.item() and step_ret.item() == mean_ret.item()
     _assert_tree_close(theta_to_numpy(module), jtheta, rtol=1e-5, atol=1e-5 * LR)
@@ -228,11 +230,24 @@ def test_a2c_history_independent_of_log_every():
     assert opt_state.state[theta2.policy[0].weight]["step"] == 6
 
 
+@pytest.mark.parametrize("n", [6, 32, 33, 100, 256, 1025])
+def test_es_row_sum_is_xla_order(n):
+    """``_xla_row_sum`` sums the rows as XLA's CPU backend sums a jitted
+    ``x.sum(axis=0)``, bit for bit: in order up to 32 rows, in evenly padded
+    blocks of 32 beyond."""
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((n, 257)) * 10.0 ** rng.uniform(-3, 3, (n, 1))).astype(np.float32)
+    with jax.enable_x64(False):
+        want = np.asarray(jax.jit(lambda a: a.sum(axis=0))(jnp.asarray(x)))
+    np.testing.assert_array_equal(_xla_row_sum(torch.from_numpy(x)).numpy(), want)
+
+
 @pytest.mark.parametrize("continuous", [False, True], ids=["discrete", "continuous"])
 def test_es_matches_jax_example(continuous):
     """``eval_theta`` and ``rbc_baseline`` over 300 steps, the population's
     returns, and the rank-shaped Adam update from the same ``eps`` and
-    returns, against the JAX example."""
+    returns, against the JAX example: the gradient and the updated
+    parameters bit for bit."""
     kw = dict(scenario=0, pop=8, n_steps=300, continuous=continuous)
     jrun, run = jax_build_es(**kw), build_es(**kw, device="cpu")
     assert run.dim == jrun.dim
@@ -249,15 +264,24 @@ def test_es_matches_jax_example(continuous):
     want = np.array([jrun.eval_theta(jnp.asarray(t)) for t in thetas])
     np.testing.assert_allclose(returns, want, rtol=1e-5)
 
-    # the update, the JAX example's expressions on the same eps and returns
-    ranks = jnp.argsort(jnp.argsort(jnp.asarray(returns))).astype(jnp.float32)
-    grad = -((ranks / (run.pop - 1) - 0.5)[:, None] * eps).mean(axis=0) / run.sigma
+    # the update, the JAX example's expressions on the same eps and returns,
+    # jitted as the example jits them; the gradient and optax.adam each
+    # compiled on their own (in one program XLA folds the gradient's
+    # 1 / sigma into adam's 1 - b1)
+    @jax.jit
+    def grad_fn(returns, eps):
+        ranks = jnp.argsort(jnp.argsort(returns)).astype(jnp.float32)
+        return -((ranks / (run.pop - 1) - 0.5)[:, None] * eps).mean(axis=0) / run.sigma
+
     optimizer = optax.adam(0.02)
-    updates, _ = optimizer.update(grad, optimizer.init(jnp.asarray(theta)))
-    want_theta = np.asarray(optax.apply_updates(jnp.asarray(theta), updates))
+    with jax.enable_x64(False):
+        grad = grad_fn(jnp.asarray(returns), jnp.asarray(eps))
+        updates, _ = jax.jit(optimizer.update)(grad, optimizer.init(jnp.asarray(theta)))
+        want_theta = np.asarray(jax.jit(optax.apply_updates)(jnp.asarray(theta), updates))
     t = torch.tensor(theta, requires_grad=True)
-    run.update(t, torch.optim.Adam([t], lr=0.02), torch.as_tensor(eps), torch.as_tensor(returns))
-    np.testing.assert_allclose(t.detach().numpy(), want_theta, rtol=1e-5, atol=1e-5 * 0.02)
+    run.update(t, Adam([t], lr=0.02), torch.as_tensor(eps), torch.as_tensor(returns))
+    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(grad))
+    np.testing.assert_array_equal(t.detach().numpy(), want_theta)
 
 
 def test_es_run_and_ties():
