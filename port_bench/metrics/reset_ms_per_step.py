@@ -1,0 +1,9 @@
+"""reset_ms_per_step.<cells>: the self time of the port's span
+``pymgrid.engine.auto_reset`` (the fresh states and the selection of the
+done replicas; the suite's restart draws are spans of their own) over the
+traced part's steps, in milliseconds (program span, under the profiler)."""
+from port_bench.spans import self_ms_per_step
+
+
+def read(run):
+    return self_ms_per_step(run, "pymgrid.engine.auto_reset")

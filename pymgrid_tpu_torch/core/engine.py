@@ -51,6 +51,7 @@ from pymgrid_tpu_torch.core.tables import (
 )
 from pymgrid_tpu_torch._device import torch_dtype
 from pymgrid_tpu_torch.core import xp
+from pymgrid_tpu_torch.utils.profiling import span
 
 __all__ = [
     "StepOutput",
@@ -440,6 +441,10 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True,
         return t >= slot_param(params[kind]["final_step"], slot) - 1
 
     def step(params, state, action):
+        with span("pymgrid.engine.step"):
+            return _step(params, state, action)
+
+    def _step(params, state, action):
         t = state["step"]
         batch = torch.broadcast_shapes(t.shape, state["battery_charge"].shape[:-1])
         zero = torch.zeros((), dtype=dtype, device=t.device)
@@ -716,18 +721,20 @@ def make_step_fn(spec, normalized=False, with_obs=True, with_log=True,
 
         obs = None
         if with_obs:
-            obs = _build_obs(
-                spec, params, new_state, batch, dtype, obs_order,
-                obs_row=None if table_row is None else table_row[..., row_width:],
-            )
+            with span("pymgrid.engine.obs"):
+                obs = _build_obs(
+                    spec, params, new_state, batch, dtype, obs_order,
+                    obs_row=None if table_row is None else table_row[..., row_width:],
+                )
         log_row = None
         if with_log:
-            log_row = _build_log_row(
-                spec, log_vals, batch, dtype, t.device,
-                [reward_total, shaped, provided_f, absorbed_f,
-                 provided_2 - fixed_provided, absorbed_2 - fixed_absorbed,
-                 fixed_provided, fixed_absorbed],
-            )
+            with span("pymgrid.engine.log_row"):
+                log_row = _build_log_row(
+                    spec, log_vals, batch, dtype, t.device,
+                    [reward_total, shaped, provided_f, absorbed_f,
+                     provided_2 - fixed_provided, absorbed_2 - fixed_absorbed,
+                     fixed_provided, fixed_absorbed],
+                )
 
         expand = lambda x: torch.as_tensor(x, dtype=dtype, device=t.device).expand(batch)
         return new_state, StepOutput(

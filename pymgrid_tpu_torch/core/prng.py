@@ -41,6 +41,8 @@ import math
 import numpy as np
 import torch
 
+from pymgrid_tpu_torch.utils.profiling import count, span
+
 __all__ = ["key", "split", "fold_in", "bits", "uniform", "randint", "normal", "gumbel",
            "categorical", "erfinv", "threefry2x32"]
 
@@ -56,16 +58,18 @@ def threefry2x32(k1, k2, x1, x2):
     """The Threefry-2x32 hash (20 rounds) of the counter words ``(x1, x2)``
     under the key words ``(k1, k2)``; all int64 tensors of uint32 values
     that broadcast together.  Returns the two output words."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x1 = (x1 + ks[0]) & _MASK
-    x2 = (x2 + ks[1]) & _MASK
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x1 = (x1 + x2) & _MASK
-            x2 = _rotl(x2, r) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & _MASK
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _MASK
-    return x1, x2
+    with span("pymgrid.prng.threefry"):
+        ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+        x1 = (x1 + ks[0]) & _MASK
+        x2 = (x2 + ks[1]) & _MASK
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x1 = (x1 + x2) & _MASK
+                x2 = _rotl(x2, r) ^ x1
+            x1 = (x1 + ks[(i + 1) % 3]) & _MASK
+            x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+        count("pymgrid.prng.threefry_words", x1.numel())
+        return x1, x2
 
 
 def key(seed, device="cpu"):

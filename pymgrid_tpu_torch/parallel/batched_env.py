@@ -58,6 +58,7 @@ from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.core.tables import ensure_tables
 from pymgrid_tpu_torch.parallel.batch import drop_config_axis, replica_keys
 from pymgrid_tpu_torch.parallel.distributed import local_layout
+from pymgrid_tpu_torch.utils.profiling import count, span
 
 __all__ = ["BatchedDiscreteEnv", "BatchedContinuousEnv"]
 
@@ -119,13 +120,16 @@ class _BatchedEnv:
 
     def _advance(self, step_fn, states, actions):
         """One step of ``(C, B)`` states, with the auto-reset."""
-        new_states, out = step_fn(self.params, states,
-                                  self._engine_action(states, actions))
+        with span("pymgrid.engine.policy"):
+            action = self._engine_action(states, actions)
+        new_states, out = step_fn(self.params, states, action)
         if self.auto_reset:
-            starts = self.params["initial_step"].to(torch.int32).unsqueeze(1)
-            fresh = self._reset_fn(self.params, starts.expand(new_states["step"].shape),
-                                   new_states.get("rng"))
-            new_states = select_state(out.done, fresh, new_states)
+            with span("pymgrid.engine.auto_reset"):
+                starts = self.params["initial_step"].to(torch.int32).unsqueeze(1)
+                fresh = self._reset_fn(self.params, starts.expand(new_states["step"].shape),
+                                       new_states.get("rng"))
+                count("pymgrid.engine.fresh_states", new_states["step"].numel())
+                new_states = select_state(out.done, fresh, new_states)
         return new_states, out
 
     @staticmethod
@@ -154,10 +158,11 @@ class _BatchedEnv:
         with ``(B, ...)`` fields (``log_row`` is ``None`` unless
         ``keep_logs``).  States whose replicas share one step of shape
         ``(1,)`` (a ``shared_step`` rollout's final states) keep it shared."""
-        actions = self._actions(actions, time_major=False)
-        new_states, out = self._advance(self._step_fn(True, keep_logs),
-                                        self._lift(states), actions.unsqueeze(0))
-        return without_config_axis(new_states), drop_config_axis(out)
+        with span("pymgrid.env.step"):
+            actions = self._actions(actions, time_major=False)
+            new_states, out = self._advance(self._step_fn(True, keep_logs),
+                                            self._lift(states), actions.unsqueeze(0))
+            return without_config_axis(new_states), drop_config_axis(out)
 
     def rollout(self, states, action_seq, keep_logs=False, keep_obs=True,
                 shared_step=False):

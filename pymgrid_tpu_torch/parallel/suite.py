@@ -47,6 +47,7 @@ from pymgrid_tpu_torch.core.params import params_to_torch, stack_configs, tree_m
 from pymgrid_tpu_torch.core.rollout import select_state
 from pymgrid_tpu_torch.core.tables import ensure_tables
 from pymgrid_tpu_torch.parallel.distributed import local_layout
+from pymgrid_tpu_torch.utils.profiling import count, span
 
 __all__ = ["normalize_to_superset", "build_suite", "SuiteRunner"]
 
@@ -334,19 +335,27 @@ class SuiteRunner:
             if seq_mode:
                 return i0 + torch.remainder(new_state["step"] - i0, max_start - i0)
             if redraw:
-                return self._draw(params["initial_step"], new_state["rng"])
+                with span("pymgrid.suite.restart_draw"):
+                    return self._draw(params["initial_step"], new_state["rng"])
             return i0.expand(new_state["step"].shape)
 
         def advance(params, states):
-            action = policy(params, states)
+            with span("pymgrid.engine.policy"):
+                action = policy(params, states)
             new_states, out = step_fn(params, states, action)
             if auto_reset:
-                fresh = reset_fn(params, reset_target(params, new_states),
-                                 new_states.get("rng"))
-                new_states = select_state(out.done, fresh, new_states)
+                with span("pymgrid.engine.auto_reset"):
+                    fresh = reset_fn(params, reset_target(params, new_states),
+                                     new_states.get("rng"))
+                    count("pymgrid.engine.fresh_states", new_states["step"].numel())
+                    new_states = select_state(out.done, fresh, new_states)
             return new_states, out
 
         def suite_rollout(params, keys):
+            with span("pymgrid.suite.rollout"):
+                return _rollout(params, keys)
+
+        def _rollout(params, keys):
             keys = self._local_keys(keys)
             if randomize_initial_step:
                 starts = self._draw(params["initial_step"], keys)

@@ -6,6 +6,9 @@ Port of :mod:`pymgrid_tpu.utils.profiling`:
   trace under ``log_dir``; CUDA activity too when the device is CUDA), and
   :func:`device_summary` reads from it the kernels launched and the time the
   device was busy,
+* :func:`span` and :func:`count` mark the port's own layers inside such a
+  capture (a named range on the profiler's timeline, and host tallies that
+  :func:`span_totals` returns); with no capture running they do nothing,
 * :class:`Throughput` measures env-steps/s around device work,
 * :func:`check_balance` asserts the energy-balance invariant
   (``np.isclose(provided, consumed)``, the reference's only runtime check,
@@ -22,9 +25,9 @@ import numpy as np
 import torch
 
 from pymgrid_tpu_torch._device import resolve_device
-from pymgrid_tpu_torch.core.engine import make_step_fn
 
-__all__ = ["trace", "device_summary", "Throughput", "check_balance", "checked_step"]
+__all__ = ["trace", "device_summary", "span", "count", "span_totals", "Throughput",
+           "check_balance", "checked_step"]
 
 
 def _sync(device):
@@ -38,7 +41,9 @@ def trace(log_dir=None, device="cuda"):
     activity when ``device`` is CUDA (the device is synchronized before the
     capture ends, so queued kernels are in it).  Yields the profiler; on exit
     writes its Chrome trace to ``log_dir/trace.json`` (by default
-    ``pymgrid_tpu_torch_trace`` in the system's temporary directory)."""
+    ``pymgrid_tpu_torch_trace`` in the system's temporary directory).  The
+    port's :func:`span` ranges are in it, and :func:`span_totals` starts
+    from empty tallies at its start."""
     from torch.profiler import ProfilerActivity, profile
 
     if log_dir is None:
@@ -48,6 +53,8 @@ def trace(log_dir=None, device="cuda"):
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    _tallies.clear()
+    _counters.clear()
     with profile(activities=activities) as prof:
         yield prof
         _sync(device)
@@ -72,6 +79,80 @@ def device_summary(prof):
             busy += stop - max(start, end)
             end = stop
     return {"kernels": len(spans), "busy_ms": busy / 1e3}
+
+
+# its ``_is_profiler_enabled``, which every torch profiler sets on start and
+# clears on stop: an attribute read, cheaper than a call into the C++ side
+_autograd_profiler = torch.autograd.profiler
+_tallies = {}    # span name -> [calls, total_ns, self_ns]
+_counters = {}   # counter name -> sum
+_open = []       # the spans open now, innermost last: [name, start_ns, child_ns]
+
+
+class _Span:
+    """An open :func:`span`: a ``record_function`` range on the profiler's
+    timeline, and its host time in :func:`span_totals`."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        _open.append([self.name, time.perf_counter_ns(), 0])
+
+    def __exit__(self, *exc):
+        name, start, child = _open.pop()
+        total = time.perf_counter_ns() - start
+        if _open:
+            _open[-1][2] += total
+        tally = _tallies.get(name)
+        if tally is None:
+            tally = _tallies[name] = [0, 0, 0]
+        tally[0] += 1
+        tally[1] += total
+        tally[2] += total - child
+        self._range.__exit__(*exc)
+        return False
+
+
+_OFF = contextlib.nullcontext()   # the span when no profiler runs
+
+
+def span(name):
+    """``with span("pymgrid.<layer>.<part>"):`` marks a part of the port.
+
+    On only while a ``torch.profiler`` capture runs (:func:`trace`, or any
+    other): the block is then a ``record_function`` range in the capture,
+    on the clock of its device events, and its host time is added to
+    :func:`span_totals` under ``name``: calls, total nanoseconds, and self
+    nanoseconds (the total less the totals of the spans opened inside it,
+    so the self times of every span under a root add up to the root's
+    total).  The tallies are the process's and spans nest: open them from
+    one thread.  With no capture running the block runs as it is and
+    nothing is recorded."""
+    return _Span(name) if _autograd_profiler._is_profiler_enabled else _OFF
+
+
+def count(name, n):
+    """Add ``n`` to the counter ``name`` of :func:`span_totals` while a
+    ``torch.profiler`` capture runs; nothing otherwise."""
+    if _autograd_profiler._is_profiler_enabled:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def span_totals():
+    """What :func:`span` and :func:`count` recorded since the last
+    :func:`trace` started (since the process started, if none did):
+    ``{"spans": {name: {"calls", "total_ns", "self_ns"}}, "counters":
+    {name: n}}``."""
+    return {
+        "spans": {name: {"calls": c, "total_ns": t, "self_ns": s}
+                  for name, (c, t, s) in _tallies.items()},
+        "counters": dict(_counters),
+    }
 
 
 class Throughput:
@@ -153,6 +234,8 @@ def checked_step(spec, normalized=False, rtol=1e-05, atol=1e-08):
 
     The check costs one device synchronize per call: both verdicts come to
     the host together."""
+    from pymgrid_tpu_torch.core.engine import make_step_fn
+
     step_fn = make_step_fn(spec, normalized=normalized)
 
     def step(params, state, action):
