@@ -30,6 +30,18 @@ another in the engine.  A replica that wraps inside a block reads the
 window's rows past ``max_start``, which the rollout's copy of the table
 holds as the rows from ``initial_step`` on, so every step reads the row
 the per-step path reads, bitwise.
+
+On a CUDA device the per-step rollout records one step (policy, engine
+step, auto-reset with its restart draw, checksum) as a CUDA graph and
+replays it, one launch a step in place of the step's ~1,400: the same
+kernels on the same inputs, so the outputs are the eager loop's, bitwise.
+The runner keeps one graph per rollout mode and records it again when the
+policy, the batch or the addresses of the params' leaves change.  The
+policy's Python runs once, at the recording: on the card it must be a
+function of ``(params, state)`` on the device, as the port's policies are.
+A spec with a per-replica callable (a module's ``custom_fn``) and the
+block-prefetch rollout, whose step reads a new row window every step, run
+eagerly.
 """
 import numpy as np
 import torch
@@ -47,6 +59,7 @@ from pymgrid_tpu_torch.core.params import params_to_torch, stack_configs, tree_m
 from pymgrid_tpu_torch.core.rollout import select_state
 from pymgrid_tpu_torch.core.tables import ensure_tables
 from pymgrid_tpu_torch.parallel.distributed import local_layout
+from pymgrid_tpu_torch.utils import profiling
 from pymgrid_tpu_torch.utils.profiling import count, span
 
 __all__ = ["normalize_to_superset", "build_suite", "SuiteRunner"]
@@ -197,6 +210,87 @@ def _patched_table(table, initial_step, max_start):
     return out
 
 
+def _graphable(device, spec):
+    """Whether the per-step rollout of ``spec`` on ``device`` replays a
+    recorded step: on a CUDA device, where no module runs a per-replica
+    callable (``custom_fn``, any Python a user hands the engine)."""
+    return device.type == "cuda" and all(ref.custom_fn is None for ref in spec.log_order)
+
+
+def _copy_into(dst, src):
+    """Copy the nested state ``src`` into ``dst``'s tensors, in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
+def _addresses(params):
+    """Where the params' leaves are, as a recorded graph reads them."""
+    if isinstance(params, dict):
+        return tuple(a for v in params.values() for a in _addresses(v))
+    return ((params.data_ptr(), params.shape, params.stride(), params.dtype),)
+
+
+class _HostScalarsOnDevice(torch.overrides.TorchFunctionMode):
+    """Inside a capture: a scalar made on the device from a Python number
+    (the log row's ``torch.as_tensor(0.0, device=...)``), which copies from
+    the host, is filled on the device instead; the same value, and no copy,
+    which a capture cannot hold."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        device = kwargs.get("device")
+        if (func is torch.as_tensor and args and isinstance(args[0], (bool, int, float))
+                and device is not None and torch.device(device).type != "cpu"):
+            host = func(args[0], dtype=kwargs.get("dtype"))
+            return torch.full((), host.item(), dtype=host.dtype, device=device)
+        return func(*args, **kwargs)
+
+
+class _StepGraph:
+    """One step of the per-step rollout, recorded once as a CUDA graph.
+
+    ``step(states, acc)`` advances the nested ``states`` and the checksum
+    ``acc`` in place and returns the step's ``StepOutput``.  The graph reads
+    and writes this object's ``states`` and ``acc``, and each
+    :meth:`replay` leaves the step's outputs in ``out``.  ``signature`` is
+    what else the recording fixed: the policy, the batch, the addresses of
+    the params' leaves.  A replay adds to the port's counters what the
+    recorded step counted: the device does that work on every replay."""
+
+    def __init__(self, step, states, acc, signature):
+        self.signature = signature
+        self.states = tree_map(torch.clone, states)
+        self.acc = acc.clone()
+        self._graph, self.out = self._record(step)
+        count("pymgrid.suite.graph_captures", 1)
+
+    def _record(self, step):
+        """Run ``step`` once eagerly, as CUDA graphs want before a capture,
+        then record it; returns the graph and the recorded step's outputs,
+        and keeps what the recorded step counted."""
+        with torch.cuda.device(self.acc.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step(self.states, self.acc)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with profiling.recorded_counts() as self._counts, _HostScalarsOnDevice():
+                with torch.cuda.graph(graph):
+                    out = step(self.states, self.acc)
+        return graph, out
+
+    def replay(self):
+        with span("pymgrid.suite.graph_replay"):
+            self._graph.replay()
+        count("pymgrid.suite.graph_replays", 1)
+        for name, n in self._counts.items():
+            count(name, n)
+
+
 class SuiteRunner:
     """Run ``batch_per_config`` replicas of each config in lockstep.
 
@@ -242,6 +336,11 @@ class SuiteRunner:
             and (episode_end.amin(dim=1) == self.max_start).all()
             and (self.max_start - self._initial_step >= BLOCK).all()
         )
+        # the draws' upper bound on the device, so a recorded step copies
+        # nothing from the host
+        self._max_start = torch.tensor(self.max_start, dtype=torch.int64, device=self.device)
+        self._graph_steps = _graphable(self.device, self.spec)
+        self._graphs = {}   # rollout mode -> its _StepGraph
 
     def _draw(self, initial_step, keys):
         """``randint(fold_in(key, 0x51A7), (), initial_step, max_start)`` per
@@ -251,7 +350,7 @@ class SuiteRunner:
         64-bit draws per value), ``torch.int32`` its draw without x64 (two
         32-bit draws); the two give different starts."""
         low = initial_step.to(torch.int64).unsqueeze(1)
-        starts = prng.randint(prng.fold_in(keys, 0x51A7), (), low, self.max_start,
+        starts = prng.randint(prng.fold_in(keys, 0x51A7), (), low, self._max_start,
                               self.start_dtype)
         return starts.to(torch.int32)
 
@@ -315,6 +414,10 @@ class SuiteRunner:
         ``max_start - 1``, fewer than ``max_start + BLOCK`` table rows, or an
         episode shorter than ``BLOCK`` steps) it runs the per-step path; both
         give the same outputs, bitwise.
+
+        On a CUDA device the per-step rollout replays one recorded step (see
+        the module docstring): the policy's Python runs at the recording
+        only.
         """
         spec = self.spec
         step_fn = make_step_fn(spec, with_obs=True, with_log=collect)
@@ -329,6 +432,7 @@ class SuiteRunner:
             raise ValueError("block_prefetch requires randomize_initial_step, "
                              "auto_reset and collect=False")
         blocked = bool(block_prefetch) and n_steps % BLOCK == 0 and self._blockable
+        mode = (collect, auto_reset, randomize_initial_step)
 
         def reset_target(params, new_state):
             i0 = params["initial_step"].to(torch.int32).unsqueeze(1)
@@ -351,6 +455,39 @@ class SuiteRunner:
                     new_states = select_state(out.done, fresh, new_states)
             return new_states, out
 
+        def step(params, states, acc):
+            """One step of the loop: the new states, checksum and outputs."""
+            states, out = advance(params, states)
+            return states, acc + out.reward + out.obs.sum(dim=-1), out
+
+        def step_in_place(params, states, acc):
+            new_states, new_acc, out = step(params, states, acc)
+            _copy_into(states, new_states)
+            acc.copy_(new_acc)
+            return out
+
+        def replayed(params, states, acc):
+            """The per-step loop as replays of the mode's recorded step."""
+            signature = (policy, tuple(acc.shape), _addresses(params))
+            graph = self._graphs.get(mode)
+            if graph is None or graph.signature != signature:
+                self._graphs[mode] = None   # free the old recording's memory first
+                graph = self._graphs[mode] = _StepGraph(
+                    lambda s, a: step_in_place(params, s, a), states, acc, signature)
+            _copy_into(graph.states, states)
+            graph.acc.copy_(acc)
+            outs = None
+            if collect:
+                outs = StepOutput(*[x.new_empty(x.shape[:2] + (n_steps,) + x.shape[2:])
+                                    for x in graph.out])
+            for t in range(n_steps):
+                graph.replay()
+                if collect:
+                    for buf, x in zip(outs, graph.out):
+                        buf[:, :, t].copy_(x)
+            acc = graph.acc.clone()
+            return (acc, outs) if collect else acc
+
         def suite_rollout(params, keys):
             with span("pymgrid.suite.rollout"):
                 return _rollout(params, keys)
@@ -372,13 +509,13 @@ class SuiteRunner:
                     for row in rows:
                         # the row rides in this step's state only: the new
                         # state never carries it
-                        states, out = advance(params, {**states, "table_row": row})
-                        acc = acc + out.reward + out.obs.sum(dim=-1)
+                        states, acc, _ = step(params, {**states, "table_row": row}, acc)
                 return acc
+            if self._graph_steps:
+                return replayed(params, states, acc)
             outs = []
             for _ in range(n_steps):
-                states, out = advance(params, states)
-                acc = acc + out.reward + out.obs.sum(dim=-1)
+                states, acc, out = step(params, states, acc)
                 if collect:
                     outs.append(out)
             if collect:

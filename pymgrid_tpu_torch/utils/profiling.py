@@ -8,7 +8,9 @@ Port of :mod:`pymgrid_tpu.utils.profiling`:
   device was busy,
 * :func:`span` and :func:`count` mark the port's own layers inside such a
   capture (a named range on the profiler's timeline, and host tallies that
-  :func:`span_totals` returns); with no capture running they do nothing,
+  :func:`span_totals` returns); with no capture running they do nothing;
+  :func:`recorded_counts` keeps what a block counts, for work replayed
+  later (a CUDA graph),
 * :class:`Throughput` measures env-steps/s around device work,
 * :func:`check_balance` asserts the energy-balance invariant
   (``np.isclose(provided, consumed)``, the reference's only runtime check,
@@ -26,8 +28,8 @@ import torch
 
 from pymgrid_tpu_torch._device import resolve_device
 
-__all__ = ["trace", "device_summary", "span", "count", "span_totals", "Throughput",
-           "check_balance", "checked_step"]
+__all__ = ["trace", "device_summary", "span", "count", "span_totals", "recorded_counts",
+           "Throughput", "check_balance", "checked_step"]
 
 
 def _sync(device):
@@ -87,6 +89,7 @@ _autograd_profiler = torch.autograd.profiler
 _tallies = {}    # span name -> [calls, total_ns, self_ns]
 _counters = {}   # counter name -> sum
 _open = []       # the spans open now, innermost last: [name, start_ns, child_ns]
+_recording = []  # the dicts of the recorded_counts blocks open now, innermost last
 
 
 class _Span:
@@ -138,9 +141,27 @@ def span(name):
 
 def count(name, n):
     """Add ``n`` to the counter ``name`` of :func:`span_totals` while a
-    ``torch.profiler`` capture runs; nothing otherwise."""
-    if _autograd_profiler._is_profiler_enabled:
+    ``torch.profiler`` capture runs; nothing otherwise.  Inside
+    :func:`recorded_counts` it adds to that block's dict instead."""
+    if _recording:
+        counts = _recording[-1]
+        counts[name] = counts.get(name, 0) + n
+    elif _autograd_profiler._is_profiler_enabled:
         _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recorded_counts():
+    """``with recorded_counts() as counts:`` collects into ``counts`` what
+    :func:`count` adds inside the block, profiler or not, and keeps it out
+    of :func:`span_totals`: the counts of work recorded once and replayed
+    later (a CUDA graph's), for the replays to add."""
+    counts = {}
+    _recording.append(counts)
+    try:
+        yield counts
+    finally:
+        _recording.pop()
 
 
 def span_totals():

@@ -173,3 +173,48 @@ def test_collect_rollout_spans(runner, tmp_path):
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"pymgrid.suite.rollout", "pymgrid.suite.restart_draw",
             "pymgrid.prng.threefry", *ENGINE} <= names
+
+
+def test_recorded_counts_stay_out_of_the_tallies(tmp_path):
+    """Inside ``recorded_counts`` a count goes to the block's dict, with or
+    without a profiler, and not to ``span_totals``; the innermost block
+    takes it."""
+    with profiling.recorded_counts() as outside:
+        count("pymgrid.n", 2)
+    with trace(str(tmp_path), device="cpu"):
+        count("pymgrid.n", 1)
+        with profiling.recorded_counts() as outer:
+            count("pymgrid.n", 3)
+            with profiling.recorded_counts() as inner:
+                count("pymgrid.m", 4)
+    assert (outside, outer, inner) == ({"pymgrid.n": 2}, {"pymgrid.n": 3}, {"pymgrid.m": 4})
+    assert span_totals()["counters"] == {"pymgrid.n": 1}
+    assert profiling._recording == []
+
+
+def test_suite_steps_run_eagerly_on_the_cpu_and_with_callables(runner, tmp_path):
+    """The suite replays a recorded step on a CUDA device only, and never
+    for a spec with a per-replica callable: on the CPU the rollout runs its
+    eager loop, and no ``pymgrid.suite.graph_*`` span or counter fires."""
+    from pymgrid_tpu_torch.modules import GensetModule
+    from pymgrid_tpu_torch.parallel.suite import _graphable
+
+    cuda = torch.device("cuda")
+    assert not runner._graph_steps and _graphable(cuda, runner.spec)
+    fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), T, auto_reset=True,
+                           collect=True, randomize_initial_step=True)
+    with trace(str(tmp_path), device="cpu"):
+        fn(runner.params, runner.make_keys(3))
+    totals = span_totals()
+    assert totals["spans"]["pymgrid.engine.step"]["calls"] == T
+    assert not [n for n in (*totals["spans"], *totals["counters"])
+                if n.startswith("pymgrid.suite.graph")]
+
+    microgrid = Microgrid.from_scenario(1)
+    genset = next(m for m in microgrid.modules.iterlist() if isinstance(m, GensetModule))
+    genset.genset_cost = lambda energy: 0.4 * energy + 0.01 * energy ** 2
+    with_callable = SuiteRunner([microgrid], batch_per_config=2, dtype="float32",
+                                device="cpu")
+    assert any(ref.custom_fn is not None for ref in with_callable.spec.log_order)
+    assert not _graphable(cuda, with_callable.spec)
+    assert not _graphable(torch.device("cpu"), runner.spec)

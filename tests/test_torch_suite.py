@@ -6,7 +6,9 @@ JAX runner's starts from its keys (as
 ``tests/test_suite.py::test_randomized_initial_step_matches_shifted_host``
 does), and the port's ``draw_initial_steps(make_keys(seed))`` must equal them
 bitwise.  Collect-mode restarts draw from the replicas' split keys in both
-packages, so their reward and done streams are compared bitwise.  Each
+packages, so their reward and done streams are compared bitwise.  The
+rollout's CUDA graph path (one recorded step replayed) runs here with an
+eager stand-in for the graph, held bitwise against the eager loop.  Each
 package builds its microgrids with its own host layer.  The throughput-mode
 checksum ``acc + reward + obs.sum(-1)`` contains a reduction whose order
 differs between the frameworks, so it is compared with JAX at rtol 1e-12;
@@ -24,14 +26,18 @@ import torch
 
 import pymgrid_tpu
 import pymgrid_tpu_torch
+from helpers.rollout_checks import assert_same_rollout
 from pymgrid_tpu.core.rollout import make_marginal_cost_policy as jax_mc_policy
 from pymgrid_tpu.parallel.suite import SuiteRunner as JaxSuiteRunner
 from pymgrid_tpu_torch.core import prng
 from pymgrid_tpu_torch.core import rollout as tro
 from pymgrid_tpu_torch.core.engine import make_reset_fn, needs_keys
+from pymgrid_tpu_torch.core.params import tree_map
 from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
 from pymgrid_tpu_torch.parallel import suite as suite_module
 from pymgrid_tpu_torch.parallel.suite import SuiteRunner
+from pymgrid_tpu_torch.utils import profiling
+from pymgrid_tpu_torch.utils.profiling import span_totals, trace
 
 torch.set_num_threads(1)
 
@@ -488,3 +494,124 @@ def test_build_suite_include_genset_matches_jax(include_genset):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=str(path))
 
     compare(jparams, params, ())
+
+
+class _EagerReplay:
+    """A recorded step's stand-in on the CPU: a replay runs the step again
+    on the recording's inputs, and its outputs become the recording's."""
+
+    def __init__(self, graph, step):
+        self.graph, self.step = graph, step
+
+    def replay(self):
+        with profiling.recorded_counts():   # the replay adds the recorded counts
+            self.graph.out = self.step(self.graph.states, self.graph.acc)
+
+
+@pytest.fixture
+def replayed_on_the_cpu(monkeypatch):
+    """The suite's graph path on the CPU: a runner takes it once its
+    ``_graph_steps`` is set, and ``_StepGraph`` records a step by running it
+    once and replays it by running it again."""
+    def record(self, step):
+        with profiling.recorded_counts() as self._counts:
+            out = step(self.states, self.acc)
+        return _EagerReplay(self, step), out
+
+    monkeypatch.setattr(suite_module._StepGraph, "_record", record)
+
+    def make(mgs, B, **kw):
+        graphed, eager = (SuiteRunner(mgs, batch_per_config=B, device="cpu", **kw)
+                          for _ in range(2))
+        graphed._graph_steps = True
+        return graphed, eager
+
+    return make
+
+
+@pytest.mark.parametrize("mode", [
+    dict(collect=True, randomize_initial_step=True, start_dtype=torch.int32),
+    dict(collect=True, randomize_initial_step=True, start_dtype=torch.int64),
+    dict(collect=False, randomize_initial_step=True, block_prefetch=False),
+    dict(collect=True, randomize_initial_step=False),
+    dict(collect=False, randomize_initial_step=False),
+], ids=["collect-int32", "collect-int64", "throughput", "fixed-collect", "fixed-throughput"])
+def test_replayed_steps_equal_the_eager_loop(mode, replayed_on_the_cpu, tmp_path):
+    """Three configs of a 40-row series x 4 replicas over 100 steps in
+    float32, every replica restarting: the graph path equals the eager loop
+    bitwise (every field's dtype, shape, strides and bits, and the
+    checksum) in two rollouts in a row on other keys; under the profiler a
+    replay counts what the recorded step counted, so the counters of a
+    10-step rollout, which replays the same recording, are the eager
+    loop's, and one ``graph_replays`` a step."""
+    mode = dict(mode)
+    start_dtype = mode.pop("start_dtype", torch.int64)
+    graphed, eager = replayed_on_the_cpu(_short_series_mgs(n_configs=3), 4,
+                                         dtype="float32", start_dtype=start_dtype)
+    policy = make_marginal_cost_policy(graphed.spec)
+    fn = graphed.rollout_fn(policy, 100, auto_reset=True, **mode)
+    want_fn = eager.rollout_fn(policy, 100, auto_reset=True, **mode)
+    for seed in (3, 2**33 + 5):
+        want = want_fn(eager.params, eager.make_keys(seed))
+        assert_same_rollout(fn(graphed.params, graphed.make_keys(seed)), want)
+        if mode["collect"]:
+            assert (want[1].done.sum(dim=-1) >= 2).all()   # every replica restarted
+    with trace(str(tmp_path / "eager"), device="cpu"):
+        eager.rollout_fn(policy, 10, auto_reset=True, **mode)(eager.params, eager.make_keys(4))
+    counters = span_totals()["counters"]
+    with trace(str(tmp_path / "graphed"), device="cpu"):
+        graphed.rollout_fn(policy, 10, auto_reset=True, **mode)(graphed.params,
+                                                                graphed.make_keys(4))
+    assert span_totals()["counters"] == {**counters, "pymgrid.suite.graph_replays": 10}
+    assert len(graphed._graphs) == 1 and not eager._graphs
+
+
+def test_replayed_step_is_recorded_again_for_other_params_or_policy(replayed_on_the_cpu,
+                                                                    tmp_path, block_gathers):
+    """An 8-step and a 30-step rollout of one mode share one recording; a
+    copy of the params (leaves at other addresses) or another policy object
+    records again, and the outputs stay the eager loop's; the mode keeps
+    one recording.  The block-prefetch rollout stays eager."""
+    graphed, eager = replayed_on_the_cpu(_short_series_mgs(n_configs=2), 3, dtype="float64")
+    policy = make_marginal_cost_policy(graphed.spec)
+    kw = dict(auto_reset=True, collect=True, randomize_initial_step=True)
+    keys = graphed.make_keys(9)
+    want = eager.rollout_fn(policy, 30, **kw)(eager.params, keys)
+
+    def captures(params, policy=policy):
+        with trace(str(tmp_path), device="cpu"):
+            got = graphed.rollout_fn(policy, 30, **kw)(params, keys)
+        assert_same_rollout(got, want)
+        return span_totals()["counters"].get("pymgrid.suite.graph_captures", 0)
+
+    with trace(str(tmp_path), device="cpu"):
+        graphed.rollout_fn(policy, 8, **kw)(graphed.params, keys)
+    assert span_totals()["counters"]["pymgrid.suite.graph_captures"] == 1
+    assert captures(graphed.params) == 0
+    assert captures(tree_map(torch.clone, graphed.params)) == 1
+    assert captures(graphed.params) == 1
+    assert captures(graphed.params, make_marginal_cost_policy(graphed.spec)) == 1
+    assert len(graphed._graphs) == 1
+
+    blockable, _ = replayed_on_the_cpu(
+        _short_series_mgs(ts_kwargs=_ending_at_max_start(8)), 3, dtype="float64")
+    blockable.rollout_fn(policy, 16, auto_reset=True, randomize_initial_step=True)(
+        blockable.params, blockable.make_keys(1))
+    assert len(block_gathers) == 2 and not blockable._graphs
+
+
+def test_host_scalars_are_filled_on_the_device():
+    """Inside a recording, ``torch.as_tensor`` of a Python number bound for
+    a device (a copy from the host, which a capture refuses) becomes a fill
+    there, with the dtype ``as_tensor`` infers or is given; tensors, host
+    tensors and other calls pass as they are."""
+    with suite_module._HostScalarsOnDevice():
+        made = [torch.as_tensor(0.0, device="meta"), torch.as_tensor(3, device="meta"),
+                torch.as_tensor(True, device="meta"),
+                torch.as_tensor(0.5, dtype=torch.float64, device="meta")]
+        host = torch.as_tensor(2.5, device="cpu")
+        same = torch.as_tensor(host, device="cpu")
+    assert [(x.device.type, x.dtype, x.dim()) for x in made] == [
+        ("meta", torch.float32, 0), ("meta", torch.int64, 0), ("meta", torch.bool, 0),
+        ("meta", torch.float64, 0)]
+    assert host.item() == 2.5 and same is host
