@@ -42,6 +42,7 @@ from pymgrid_tpu_torch.core.params import (
     without_config_axis,
 )
 from pymgrid_tpu_torch.parallel.batch import drop_config_axis
+from pymgrid_tpu_torch.utils.profiling import span
 
 __all__ = ["BatchedMPC", "ProblemTemplate"]
 
@@ -328,7 +329,8 @@ class ProblemTemplate:
         ``2^k`` status patterns over the ``k`` most fractional steps
         ``enum_chunk`` patterns per batched solve, and keep each problem's
         cheapest integral solution (a running best, first minimum wins).
-        ``solver`` defaults to the template's."""
+        ``solver`` defaults to the template's.  Under a profiler capture a
+        call is the span ``pymgrid.mpc.enumerate``."""
         H, dtype = self.horizon, self.dtype
         k_bits = min(enum_bits, H)
         n_combos = 2 ** k_bits
@@ -342,6 +344,10 @@ class ProblemTemplate:
             return a.reshape(-1, a.shape[-1])
 
         def refine(c, b, h):
+            with span("pymgrid.mpc.enumerate"):
+                return _refine(c, b, h)
+
+        def _refine(c, b, h):
             lead = c.shape[:-1]
             x_rel, _ = solve(flat(c), flat(b), flat(h))
             u_all = candidate_patterns(self.genset_production(x_rel.view(lead + (-1,))))

@@ -15,6 +15,19 @@ templates are joined by :meth:`ProblemTemplate.stack`, so assembly,
 enumeration, action extraction and the balance repair are each one batched
 call over all scenarios.  The controller per scenario is
 :class:`~pymgrid_tpu_torch.algos.mpc_batched.BatchedMPC`'s.
+
+A step is :meth:`SuiteMPC.plan` (the controls every scenario executes) then
+:meth:`SuiteMPC.act` (the engine step on them).  Under a profiler capture
+the step is the span ``pymgrid.mpc.step``, with ``pymgrid.mpc.assemble``
+(the series windows and the LP data), ``pymgrid.mpc.enumerate`` (the genset
+pattern enumeration), ``pymgrid.lp.ipm`` (every interior-point solve),
+``pymgrid.mpc.act`` (the first-step controls and their balance repair) and
+``pymgrid.engine.step`` inside it.
+
+On a CUDA device each interior-point solve shape is recorded once as a CUDA
+graph and replayed (``cuda_graph`` of :mod:`pymgrid_tpu_torch.core.lp`):
+an hour launches three graphs for its 130 iterations, bitwise as the eager
+solves, so the device and not the host's speed sets the pace.
 """
 import numpy as np
 import torch
@@ -26,6 +39,7 @@ from pymgrid_tpu_torch.core.lp import make_batched_box_ipm_solver, make_batched_
 from pymgrid_tpu_torch.core.params import tree_map
 from pymgrid_tpu_torch.modules import GensetModule
 from pymgrid_tpu_torch.parallel.suite import build_suite, normalize_to_superset
+from pymgrid_tpu_torch.utils.profiling import span
 
 __all__ = ["SuiteMPC"]
 
@@ -96,8 +110,11 @@ class SuiteMPC:
 
         if solver_kind not in ("box", "ipm"):
             raise ValueError(f"solver_kind must be 'box' or 'ipm', got {solver_kind!r}")
+        # on a CUDA device each solve shape (relaxation, pattern chunk, final
+        # re-solve) is recorded once and replayed: the host launches one graph
+        # for the ~290 kernels of each of an hour's 130 iterations
         kw = dict(dtype=numpy_dtype(dtype), x_scale=tpl.x_scale_np,
-                  matmul_precision=matmul_precision, device=self.device)
+                  matmul_precision=matmul_precision, device=self.device, cuda_graph=True)
         if solver_kind == "ipm":
             kw["solve_mode"] = solve_mode
         factory = make_batched_box_ipm_solver if solver_kind == "box" else make_batched_ipm_solver
@@ -128,50 +145,74 @@ class SuiteMPC:
     def _plan(self, states):
         """Actions for the ``(S, 1)`` engine states, all scenarios at once."""
         tpl, params, H = self.template, self.params, self.horizon
-        t = states["step"]
-        load_vec = -series_window(params, "load", tpl.load_ref.slot, t, H)   # (1, S, H)
-        pv_vec = series_window(params, "renewable", tpl.pv_ref.slot, t, H)
-        grid = tpl.grid_windows(params, t)
-        # the modular path plans with an always-up grid (reference mpc.py:914)
-        grid_status = torch.ones(H, dtype=self.dtype, device=self.device)
-        c, b, h = tpl.assemble(params, load_vec, pv_vec, grid, grid_status,
-                               tpl.soc_0(params, states))
-        if self._tie_bias is not None:
-            c = c + self._tie_bias
+        with span("pymgrid.mpc.assemble"):
+            t = states["step"]
+            load_vec = -series_window(params, "load", tpl.load_ref.slot, t, H)   # (1, S, H)
+            pv_vec = series_window(params, "renewable", tpl.pv_ref.slot, t, H)
+            grid = tpl.grid_windows(params, t)
+            # the modular path plans with an always-up grid (reference mpc.py:914)
+            grid_status = torch.ones(H, dtype=self.dtype, device=self.device)
+            c, b, h = tpl.assemble(params, load_vec, pv_vec, grid, grid_status,
+                                   tpl.soc_0(params, states))
+            if self._tie_bias is not None:
+                c = c + self._tie_bias
+        u = None
         if self._refine is not None:
             # rank the patterns on the cheap enumeration solver, then re-solve
             # each scenario's winner at full fidelity
             _, u, _, _ = self._refine(c, b, h)
             x, _ = self.solver(c[0], b[0], tpl.apply_genset_pattern(h, u)[0])
-            actions = tpl.extract_action(x[None], u)
         else:
             x, _ = self.solver(c[0], b[0], h[0])
-            actions = tpl.extract_action(x[None])
-        if self.repair_balance:
-            actions = tpl.rebalance_first_step(params, states, actions, load_vec[..., 0].T,
-                                               pv_vec[..., 0].T, grid_status[0])
+        with span("pymgrid.mpc.act"):
+            actions = tpl.extract_action(x[None], u)
+            if self.repair_balance:
+                actions = tpl.rebalance_first_step(params, states, actions,
+                                                   load_vec[..., 0].T, pv_vec[..., 0].T,
+                                                   grid_status[0])
         return actions
 
     def _step(self, states):
-        return self._engine_step(self.params, states, self._plan(states))
+        with span("pymgrid.mpc.step"):
+            return self._engine_step(self.params, states, self._plan(states))
 
-    def _reset(self, seed):
-        starts = self.params["initial_step"].to(torch.int32).unsqueeze(1)
+    def _reset(self, seed, starts=None):
+        if starts is None:
+            starts = self.params["initial_step"].to(torch.int32)
+        else:
+            starts = torch.as_tensor(starts, device=self.device).to(torch.int32)
+            if starts.shape != (self.n_scenarios,):
+                raise ValueError(f"starts must be ({self.n_scenarios},), one step per "
+                                 f"scenario, got {tuple(starts.shape)}")
+        starts = starts.unsqueeze(1)
         keys = reset_keys(self.spec, seed, starts.device, (starts.shape[0], 1))
         return self._reset_fn(self.params, starts, keys)
 
     # ------------------------------------------------------------------ api
-    def reset(self, seed=0):
-        """``(S, ...)`` states at each scenario's initial step; ``seed`` keys
-        threefry-gaussian forecasts (``split(key(seed), S)``, as the JAX
-        class keys them) and draws nothing for other forecasters."""
-        return _drop(self._reset(seed))
+    def reset(self, seed=0, starts=None):
+        """``(S, ...)`` states at each scenario's initial step, or at the
+        steps ``starts`` (one per scenario) with the battery at its initial
+        charge; ``seed`` keys threefry-gaussian forecasts (``split(key(seed),
+        S)``, as the JAX class keys them) and draws nothing for other
+        forecasters."""
+        return _drop(self._reset(seed, starts))
+
+    def plan(self, states):
+        """The controls every scenario executes from the ``(S, ...)``
+        states: the engine's action dict with ``(S, ...)`` leaves."""
+        return _drop(self._plan(_lift(states)))
+
+    def act(self, states, actions):
+        """The engine step of every scenario on ``actions``; returns
+        ``(states, StepOutput)`` with ``(S,)`` fields (no observation or log
+        row)."""
+        new_states, out = self._engine_step(self.params, _lift(states), _lift(actions))
+        return _drop(new_states), type(out)(*[None if f is None else f[:, 0] for f in out])
 
     def step(self, states):
-        """Plan + act for every scenario; returns ``(states, StepOutput)``
-        with ``(S,)`` fields (no observation or log row)."""
-        new_states, out = self._step(_lift(states))
-        return _drop(new_states), type(out)(*[None if f is None else f[:, 0] for f in out])
+        """Plan + act for every scenario: ``act(states, plan(states))``."""
+        with span("pymgrid.mpc.step"):
+            return self.act(states, self.plan(states))
 
     def run_scanned(self, n_steps=None, seed=0, chunk=500, progress=None):
         """The suite's receding-horizon run: rewards ``(T, S)`` as numpy

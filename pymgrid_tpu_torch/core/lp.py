@@ -29,6 +29,13 @@ over iterations becomes a Python loop of eager ops; nothing inside a solve waits
 * The interior-point centering ratio is guarded: ``sigma = (mu_aff / mu)**3``
   is 0 where ``mu`` is 0 (every variable pinned), where the JAX solver
   produces NaN (ROADMAP.md C3).
+* Under a profiler capture every interior-point solve is the span
+  ``pymgrid.lp.ipm`` and adds its problems to the counter
+  ``pymgrid.lp.problems`` and its iterations to ``pymgrid.lp.iterations``.
+* ``cuda_graph=True`` on a CUDA device records each input shape's solve
+  once as a CUDA graph and replays it (:class:`_RecordedSolves`): one launch
+  for the ~290 kernels of every iteration, the same kernels on the same
+  inputs.
 
 Reductions and LAPACK run in another order than XLA's, so the solvers agree
 with the JAX package to a tolerance, not bitwise.
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from pymgrid_tpu_torch._device import resolve_device, torch_dtype
+from pymgrid_tpu_torch.utils.profiling import count, span
 
 __all__ = [
     "ruiz_scale",
@@ -109,6 +117,51 @@ def _max_step(ratio):
     return torch.clamp(0.995 * ratio.amin(dim=2, keepdim=True), max=1.0)
 
 
+def _recorded(cuda_graph, device):
+    """Whether a solver replays recorded solves: asked for, on a CUDA device."""
+    return cuda_graph and device.type == "cuda"
+
+
+class _RecordedSolves:
+    """``solve(c, b, h)`` recorded once per input shape and dtype as a CUDA
+    graph and replayed.
+
+    A shape's first call runs ``solve`` once eagerly on a side stream, as a
+    capture wants, then records it on copies of its inputs.  Every call
+    copies its inputs into the recording's, replays it and returns copies of
+    its outputs, so a later replay cannot overwrite what a caller holds.  A
+    recording keeps its memory for the solver's life: one per shape the
+    caller solves (a planner solves a few)."""
+
+    def __init__(self, solve, device):
+        self._solve, self.device = solve, device
+        self._graphs = {}   # ((shape, dtype) of c, b, h) -> (graph, inputs, outputs)
+
+    def __call__(self, c, b, h):
+        key = tuple((tuple(v.shape), v.dtype) for v in (c, b, h))
+        if key not in self._graphs:
+            self._graphs[key] = self._record(tuple(v.clone() for v in (c, b, h)))
+        graph, inputs, (x, info) = self._graphs[key]
+        for dst, src in zip(inputs, (c, b, h)):
+            dst.copy_(src)
+        graph.replay()
+        return x.clone(), {k: v.clone() for k, v in info.items()}
+
+    def _record(self, inputs):
+        """Run the solve once eagerly, then record it; returns the graph,
+        the inputs it reads and the outputs it writes."""
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._solve(*inputs)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                outputs = self._solve(*inputs)
+        return graph, inputs, outputs
+
+
 def _stack_inputs(K_eq, K_in, x_scale):
     """The JAX solvers' 2-D -> ``(S, ...)`` stack promotion."""
     K_eq = np.asarray(K_eq, dtype=np.float64)
@@ -130,11 +183,11 @@ def _split_batch(c, S):
 
 def make_batched_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64, x_scale=None,
                             newton_refine=None, matmul_precision="float32",
-                            solve_mode="triangular", *, device="cuda"):
+                            solve_mode="triangular", *, device="cuda", cuda_graph=False):
     """Batched Mehrotra predictor-corrector IPM in slack form,
     ``A [x; s] = [b; h]`` with ``A = [[K_eq, 0], [K_in, I]]``: the port of
     :func:`pymgrid_tpu.core.lp.make_batched_ipm_solver`, same arguments plus
-    ``device``.
+    ``device`` and ``cuda_graph``.
 
     3-D ``K_eq (S, me, n0)`` / ``K_in (S, mi, n0)`` stack S problems of one
     structure with different matrix values; ``solve`` then takes ``B = k*S``
@@ -186,9 +239,12 @@ def make_batched_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64, x_scale=None
         return torch.einsum("ksm,smn->ksn", y, A)
 
     def solve(c, b, h):
-        c, b, h = (_as(v, dt, device) for v in (c, b, h))
-        with _matmul_precision(matmul_precision, device):
-            return _solve(c, b, h)
+        with span("pymgrid.lp.ipm"):
+            count("pymgrid.lp.problems", len(c))
+            count("pymgrid.lp.iterations", iters)
+            c, b, h = (_as(v, dt, device) for v in (c, b, h))
+            with _matmul_precision(matmul_precision, device):
+                return run(c, b, h)
 
     def _solve(c, b, h):
         B, k = _split_batch(c, S)
@@ -278,6 +334,7 @@ def make_batched_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64, x_scale=None
         return x_out, {"residual": r, "objective": obj, "gap": gap,
                        "rejected": rejected.reshape(B)}
 
+    run = _RecordedSolves(_solve, device) if _recorded(cuda_graph, device) else _solve
     return solve
 
 
@@ -350,10 +407,11 @@ def make_batched_lp_solver(K_eq, K_in, iters=8000, restart_every=200,
 
 def make_batched_box_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64,
                                 x_scale=None, newton_refine=None,
-                                matmul_precision="float32", *, device="cuda"):
+                                matmul_precision="float32", *, device="cuda",
+                                cuda_graph=False):
     """Batched Mehrotra IPM on the box structure of the MPC LP: the port of
     :func:`pymgrid_tpu.core.lp.make_batched_box_ipm_solver`, same arguments
-    plus ``device``.
+    plus ``device`` and ``cuda_graph``.
 
     Every inequality row touches exactly one variable, so the LP is
     ``min c'x  s.t.  K_eq x = b,  lo(h) <= x <= hi(h)`` and the normal
@@ -421,9 +479,12 @@ def make_batched_box_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64,
         return torch.einsum("ksm,smn->ksn", y, A)
 
     def solve(c, b, h):
-        c, b, h = (_as(v, dt, device) for v in (c, b, h))
-        with _matmul_precision(matmul_precision, device):
-            return _solve(c, b, h)
+        with span("pymgrid.lp.ipm"):
+            count("pymgrid.lp.problems", len(c))
+            count("pymgrid.lp.iterations", iters)
+            c, b, h = (_as(v, dt, device) for v in (c, b, h))
+            with _matmul_precision(matmul_precision, device):
+                return run(c, b, h)
 
     def _solve(c, b, h):
         B, k = _split_batch(c, S)
@@ -528,4 +589,5 @@ def make_batched_box_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64,
         return x_out, {"residual": r, "objective": obj, "gap": gap,
                        "rejected": rejected.reshape(B)}
 
+    run = _RecordedSolves(_solve, device) if _recorded(cuda_graph, device) else _solve
     return solve

@@ -1,6 +1,7 @@
 """Tests that need a CUDA card: the port's CUDA kernels against their plain
-PyTorch versions, and the suite's rollout replaying a recorded CUDA graph
-against its eager loop.  They skip without a card; on a machine with one,
+PyTorch versions, the suite's rollout replaying a recorded CUDA graph
+against its eager loop, and the all-scenario MPC's replayed solves against
+its eager ones.  They skip without a card; on a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``.  This file
 imports nothing of JAX or the JAX package, so it runs where only the port
 is installed."""
@@ -13,6 +14,8 @@ import torch
 import pymgrid_tpu_torch
 from helpers.rollout_checks import assert_same_rollout
 from pymgrid_tpu_torch import Microgrid
+from pymgrid_tpu_torch.algos import SuiteMPC
+from pymgrid_tpu_torch.core import lp
 from pymgrid_tpu_torch.core.params import tree_map
 from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
 from pymgrid_tpu_torch.core.spec import extract_spec
@@ -147,3 +150,38 @@ def test_graph_is_shared_across_lengths_and_recorded_again_for_other_params(cuda
         got = graphed.rollout_fn(policy, 100, **kw)(params, keys)
     assert span_totals()["counters"]["pymgrid.suite.graph_captures"] == 1
     assert_same_rollout(got, eager.rollout_fn(policy, 100, **kw)(eager.params, keys))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def test_replayed_suite_mpc_matches_eager(cuda, monkeypatch):
+    """The 25 pymgrid25 scenarios at the benchmark cell's settings (float32
+    box IPM, 60 iterations, 3-bit enumeration), 6 closed-loop hours from
+    start hours drawn from a seed: the planner replaying its three recorded
+    solves (relaxation, pattern chunk, final re-solve) plans and steps bit
+    for bit as the eager one."""
+    records = []
+    record = lp._RecordedSolves._record
+    monkeypatch.setattr(lp._RecordedSolves, "_record",
+                        lambda self, inputs: records.append(len(inputs[0]))
+                        or record(self, inputs))
+    mgs = [Microgrid.from_scenario(n) for n in range(25)]
+    kw = dict(dtype="float32", device=cuda, solver_kind="box", newton_refine=2,
+              matmul_precision="float32", enum_bits=3, enum_chunk=16)
+    graphed = SuiteMPC(mgs, 60, **kw)
+    monkeypatch.setattr(lp, "_recorded", lambda cuda_graph, device: False)
+    eager = SuiteMPC(mgs, 60, **kw)
+    starts = np.random.default_rng(2**31 + 5).integers(0, graphed.n_steps_year - 48, size=25)
+    got, want = graphed.reset(7, starts=starts), eager.reset(7, starts=starts)
+    for _ in range(6):
+        plans = graphed.plan(got), eager.plan(want)
+        (got, got_out), (want, want_out) = graphed.act(got, plans[0]), eager.act(want, plans[1])
+        a, b = _leaves((plans[0], got, got_out)), _leaves((plans[1], want, want_out))
+        assert len(a) == len(b) > 0 and all(map(torch.equal, a, b))
+    assert sorted(records) == [25, 25, 200]
