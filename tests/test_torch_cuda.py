@@ -1,7 +1,7 @@
 """Tests that need a CUDA card: the port's CUDA kernels against their plain
-PyTorch versions, the suite's rollout replaying a recorded CUDA graph
-against its eager loop, and the all-scenario MPC's replayed solves against
-its eager ones.  They skip without a card; on a machine with one,
+PyTorch versions, the suite's rollout and the batched envs' ``step()``
+replaying a recorded CUDA graph against their eager loops, and the
+all-scenario MPC's replayed solves against its eager ones.  They skip without a card; on a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``.  This file
 imports nothing of JAX or the JAX package, so it runs where only the port
 is installed."""
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import pymgrid_tpu_torch
+from helpers.env_steps import STEP_CASES, actions_of, assert_same_steps, make_env, step_loop
 from helpers.rollout_checks import assert_same_rollout
 from pymgrid_tpu_torch import Microgrid
 from pymgrid_tpu_torch.algos import SuiteMPC
@@ -150,6 +151,65 @@ def test_graph_is_shared_across_lengths_and_recorded_again_for_other_params(cuda
         got = graphed.rollout_fn(policy, 100, **kw)(params, keys)
     assert span_totals()["counters"]["pymgrid.suite.graph_captures"] == 1
     assert_same_rollout(got, eager.rollout_fn(policy, 100, **kw)(eager.params, keys))
+
+
+def _envs(cuda, case, batch=64):
+    """``case``'s env twice on the card: one replaying its recorded step,
+    one held to the eager step."""
+    graphed, eager = make_env(case, batch, cuda), make_env(case, batch, cuda)
+    assert graphed._graph_steps
+    eager._graph_steps = False
+    return graphed, eager
+
+
+@pytest.mark.parametrize("case", STEP_CASES)
+def test_replayed_env_step_matches_eager(cuda, case):
+    """120 ``step()`` calls of 64 replicas on 25-row series, every replica
+    auto-resetting: the env replaying its recorded step returns the eager
+    step's states and outputs bit for bit, at every step of the loop, each
+    step's still as returned after the later steps (no buffer of the
+    recording is handed out).  The discrete env with and without logs and
+    from a shared step of shape ``(1,)``, the continuous env, and threefry
+    gaussian forecasts (``rng`` and ``forecast`` in the states)."""
+    graphed, eager = _envs(cuda, case)
+    for seed in (5, 2**31 + 9):
+        assert_same_steps(step_loop(graphed, case, 120, seed),
+                          step_loop(eager, case, 120, seed))
+    assert len(graphed._graphs) == 1 and not eager._graphs
+
+
+def test_env_step_records_once_per_signature(cuda, tmp_path):
+    """Under the profiler: 20 steps with logs and 10 without record once
+    each, and every replayed step counts one ``graph_replays`` and its fresh
+    states; a copy of the params records again; both equal the eager step.
+    Actions that require grad run the eager step."""
+    graphed, eager = _envs(cuda, "discrete")
+    with trace(str(tmp_path / "a"), cuda):
+        got = step_loop(graphed, "discrete", 20, seed=7)
+        got_lean = step_loop(graphed, "discrete-lean", 10, seed=8)
+    counters = span_totals()["counters"]
+    assert counters["pymgrid.env.graph_captures"] == 2
+    assert counters["pymgrid.env.graph_replays"] == 30
+    assert counters["pymgrid.engine.fresh_states"] == 30 * 64
+    assert_same_steps(got, step_loop(eager, "discrete", 20, seed=7), every_replica_done=False)
+    assert_same_steps(got_lean, step_loop(eager, "discrete-lean", 10, seed=8),
+                      every_replica_done=False)
+
+    graphed.params = tree_map(torch.clone, graphed.params)
+    with trace(str(tmp_path / "b"), cuda):
+        got = step_loop(graphed, "discrete", 20, seed=7)
+    assert span_totals()["counters"]["pymgrid.env.graph_captures"] == 1
+    assert len(graphed._graphs) == 1
+    assert_same_steps(got, step_loop(eager, "discrete", 20, seed=7), every_replica_done=False)
+
+    continuous, _ = _envs(cuda, "continuous")
+    states = continuous.reset()
+    actions = actions_of(continuous, np.random.RandomState(4), 1)[0].requires_grad_()
+    _, out = continuous.step(states, actions)
+    assert out.reward.requires_grad and not continuous._graphs
+    _, replayed = continuous.step(states, actions.detach())
+    assert len(continuous._graphs) == 1
+    assert torch.equal(replayed.reward, out.reward.detach())
 
 
 def _leaves(tree):
