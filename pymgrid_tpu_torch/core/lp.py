@@ -33,9 +33,8 @@ over iterations becomes a Python loop of eager ops; nothing inside a solve waits
   ``pymgrid.lp.ipm`` and adds its problems to the counter
   ``pymgrid.lp.problems`` and its iterations to ``pymgrid.lp.iterations``.
 * ``cuda_graph=True`` on a CUDA device records each input shape's solve
-  once as a CUDA graph and replays it (:class:`_RecordedSolves`): one launch
-  for the ~290 kernels of every iteration, the same kernels on the same
-  inputs.
+  once and replays it (:func:`_replayed`): one launch for the ~290 kernels
+  of every iteration, the same kernels on the same inputs.
 
 Reductions and LAPACK run in another order than XLA's, so the solvers agree
 with the JAX package to a tolerance, not bitwise.
@@ -46,6 +45,7 @@ import numpy as np
 import torch
 
 from pymgrid_tpu_torch._device import resolve_device, torch_dtype
+from pymgrid_tpu_torch.utils import cuda_graph as graphs
 from pymgrid_tpu_torch.utils.profiling import count, span
 
 __all__ = [
@@ -117,49 +117,24 @@ def _max_step(ratio):
     return torch.clamp(0.995 * ratio.amin(dim=2, keepdim=True), max=1.0)
 
 
-def _recorded(cuda_graph, device):
-    """Whether a solver replays recorded solves: asked for, on a CUDA device."""
-    return cuda_graph and device.type == "cuda"
+def _replayed(solve):
+    """``solve(c, b, h)`` replayed from a ``Recording`` per input shape
+    and dtype, made at the shape's first call and kept for the solver's life
+    (a planner solves a few shapes).  A call returns copies of the outputs,
+    which a later replay cannot overwrite."""
+    recordings = {}   # ((shape, dtype) of c, b, h) -> its Recording
 
-
-class _RecordedSolves:
-    """``solve(c, b, h)`` recorded once per input shape and dtype as a CUDA
-    graph and replayed.
-
-    A shape's first call runs ``solve`` once eagerly on a side stream, as a
-    capture wants, then records it on copies of its inputs.  Every call
-    copies its inputs into the recording's, replays it and returns copies of
-    its outputs, so a later replay cannot overwrite what a caller holds.  A
-    recording keeps its memory for the solver's life: one per shape the
-    caller solves (a planner solves a few)."""
-
-    def __init__(self, solve, device):
-        self._solve, self.device = solve, device
-        self._graphs = {}   # ((shape, dtype) of c, b, h) -> (graph, inputs, outputs)
-
-    def __call__(self, c, b, h):
+    def run(c, b, h):
         key = tuple((tuple(v.shape), v.dtype) for v in (c, b, h))
-        if key not in self._graphs:
-            self._graphs[key] = self._record(tuple(v.clone() for v in (c, b, h)))
-        graph, inputs, (x, info) = self._graphs[key]
-        for dst, src in zip(inputs, (c, b, h)):
-            dst.copy_(src)
-        graph.replay()
+        recording = recordings.get(key)
+        if recording is None:
+            recording = recordings[key] = graphs.Recording(solve, (c, b, h))
+        recording.load(c, b, h)
+        recording.replay()
+        x, info = recording.outputs
         return x.clone(), {k: v.clone() for k, v in info.items()}
 
-    def _record(self, inputs):
-        """Run the solve once eagerly, then record it; returns the graph,
-        the inputs it reads and the outputs it writes."""
-        with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self._solve(*inputs)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                outputs = self._solve(*inputs)
-        return graph, inputs, outputs
+    return run
 
 
 def _stack_inputs(K_eq, K_in, x_scale):
@@ -334,7 +309,7 @@ def make_batched_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64, x_scale=None
         return x_out, {"residual": r, "objective": obj, "gap": gap,
                        "rejected": rejected.reshape(B)}
 
-    run = _RecordedSolves(_solve, device) if _recorded(cuda_graph, device) else _solve
+    run = _replayed(_solve) if cuda_graph and graphs.available(device) else _solve
     return solve
 
 
@@ -589,5 +564,5 @@ def make_batched_box_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64,
         return x_out, {"residual": r, "objective": obj, "gap": gap,
                        "rejected": rejected.reshape(B)}
 
-    run = _RecordedSolves(_solve, device) if _recorded(cuda_graph, device) else _solve
+    run = _replayed(_solve) if cuda_graph and graphs.available(device) else _solve
     return solve

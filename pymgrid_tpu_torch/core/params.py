@@ -23,6 +23,10 @@ __all__ = [
     "without_config_axis",
     "stack_configs",
     "tree_map",
+    "tree_leaves",
+    "tree_layout",
+    "tree_addresses",
+    "copy_into",
 ]
 
 
@@ -31,6 +35,36 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_leaves(tree):
+    """The non-dict leaves of a nested dict, in its order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def tree_layout(tree):
+    """The keys, shapes and dtypes of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return tuple((k, tree_layout(v)) for k, v in tree.items())
+    return tree.shape, tree.dtype
+
+
+def tree_addresses(tree):
+    """Where a nested dict's tensors are, as a recorded CUDA graph reads them."""
+    return tuple((x.data_ptr(), x.shape, x.stride(), x.dtype) for x in tree_leaves(tree))
+
+
+def copy_into(dst, src):
+    """Copy the nested ``src`` into ``dst``'s tensors, in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            copy_into(dst[k], src[k])
+    else:
+        dst.copy_(src)
 
 
 def _leaf_to_torch(x, device, dtype, int_dtype):

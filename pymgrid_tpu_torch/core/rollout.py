@@ -21,6 +21,7 @@ from pymgrid_tpu_torch.core.engine import (
     make_reset_fn,
     make_step_fn,
 )
+from pymgrid_tpu_torch.utils.profiling import count, span
 
 __all__ = [
     "make_rollout_fn",
@@ -33,6 +34,8 @@ __all__ = [
     "make_marginal_cost_policy",
     "make_random_policy",
     "select_state",
+    "initial_steps",
+    "auto_reset",
 ]
 
 
@@ -52,9 +55,23 @@ def select_state(cond, fresh, current):
     return torch.where(c, fresh, current)
 
 
-def _initial_steps(params, like):
+def initial_steps(params, like):
     """``params["initial_step"]`` broadcast to the ``(C, B)`` of ``like``."""
     return params["initial_step"].to(torch.int32).unsqueeze(1).expand(like.shape)
+
+
+def auto_reset(reset_fn, params, new_states, out, starts_of):
+    """Where ``out.done``, a replica's state becomes a fresh one built by
+    ``reset_fn`` at ``starts_of(new_states)`` and re-keyed from its own
+    ``rng``, as the JAX rollouts re-key it; the whole under the span
+    ``pymgrid.engine.auto_reset``, counting ``pymgrid.engine.fresh_states``."""
+    with span("pymgrid.engine.auto_reset"):
+        fresh = reset_fn(params, starts_of(new_states), new_states.get("rng"))
+        count("pymgrid.engine.fresh_states", new_states["step"].numel())
+        return select_state(out.done, fresh, new_states)
+
+
+_auto_reset = auto_reset   # for make_rollout_fn, whose ``auto_reset`` flag hides it
 
 
 def make_rollout_fn(spec, policy, n_steps, normalized=False, auto_reset=False,
@@ -79,9 +96,8 @@ def make_rollout_fn(spec, policy, n_steps, normalized=False, auto_reset=False,
             action = policy(params, state)
             new_state, out = step_fn(params, state, action)
             if auto_reset:
-                fresh = reset_fn(params, _initial_steps(params, new_state["step"]),
-                                 new_state.get("rng"))
-                new_state = select_state(out.done, fresh, new_state)
+                new_state = _auto_reset(reset_fn, params, new_state, out,
+                                        lambda s: initial_steps(params, s["step"]))
             outs.append(out if collect else (out.reward, out.done))
             state = new_state
         stacked = [torch.stack(field) for field in zip(*outs)]

@@ -38,15 +38,12 @@ replica.  It holds for ``reset()`` states (one start, and auto-resets fire
 together since ``done`` depends on the time alone) and gives the same
 outputs bitwise.
 
-On a CUDA device ``step`` records one step (the policy, the engine step and
-the auto-reset) once as a CUDA graph on static inputs and replays it, one
-launch a call in place of the step's ~230: the same kernels on the same
-inputs, so the outputs are the eager step's, bitwise.  A call copies the
-caller's states and actions into the recording's inputs and returns new
-tensors, which later calls leave as they are.  The env keeps one recording
-per ``keep_logs``, layout of the states and actions, and addresses of the
-params' leaves; a spec with a per-replica callable (a module's
-``custom_fn``), an input that requires grad and ``rollout`` run eagerly.
+On a CUDA device ``step`` replays one recorded step (policy, engine step,
+auto-reset; :mod:`~pymgrid_tpu_torch.utils.cuda_graph`), one launch in place
+of ~230, bitwise, and returns new tensors, which later calls leave as they
+are.  The env keeps one recording per ``keep_logs``, layout of the states
+and actions, and params' addresses; a ``custom_fn`` spec, an input that
+requires grad and ``rollout`` run eagerly.
 """
 import numpy as np
 import torch
@@ -59,109 +56,24 @@ from pymgrid_tpu_torch.core.engine import (
     make_step_fn,
 )
 from pymgrid_tpu_torch.core.params import (
+    copy_into,
     params_to_torch,
+    tree_addresses,
+    tree_layout,
+    tree_leaves,
     tree_map,
     with_config_axis,
     without_config_axis,
 )
-from pymgrid_tpu_torch.core.rollout import make_table_policy, select_state
+from pymgrid_tpu_torch.core.rollout import auto_reset, initial_steps, make_table_policy
 from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.core.tables import ensure_tables
 from pymgrid_tpu_torch.parallel.batch import drop_config_axis, replica_keys
 from pymgrid_tpu_torch.parallel.distributed import local_layout
-from pymgrid_tpu_torch.parallel.suite import (
-    _addresses,
-    _copy_into,
-    _graphable,
-    _HostScalarsOnDevice,
-)
-from pymgrid_tpu_torch.utils import profiling
+from pymgrid_tpu_torch.utils.cuda_graph import Recording, graphable
 from pymgrid_tpu_torch.utils.profiling import count, span
 
 __all__ = ["BatchedDiscreteEnv", "BatchedContinuousEnv"]
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def _layout(tree):
-    """The keys, shapes and dtypes of a nested state: what a recording fixes."""
-    if isinstance(tree, dict):
-        return tuple((k, _layout(v)) for k, v in tree.items())
-    return tree.shape, tree.dtype
-
-
-class _HostValuesOnDevice(_HostScalarsOnDevice):
-    """:class:`~pymgrid_tpu_torch.parallel.suite._HostScalarsOnDevice` for a
-    0-d numpy array too (the threefry draws' bounds and constants,
-    ``torch.as_tensor(np.asarray(v), device=...)``): filled on the device
-    with its value, in its dtype or the one given."""
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        device = kwargs.get("device")
-        if (func is torch.as_tensor and args and isinstance(args[0], np.ndarray)
-                and args[0].ndim == 0 and device is not None
-                and torch.device(device).type != "cpu"):
-            host = func(args[0], dtype=kwargs.get("dtype"))
-            return torch.full((), host.item(), dtype=host.dtype, device=device)
-        return super().__torch_function__(func, types, args, kwargs)
-
-
-class _EnvStepGraph:
-    """One ``step()`` of a batched env (policy, engine step, auto-reset),
-    recorded once as a CUDA graph.
-
-    The graph reads ``states`` (``(1, B, ...)`` leaves, the step ``(1, B)``
-    or a shared ``(1, 1)``) and ``actions`` (``(1, B) + tail``).  A call
-    copies the caller's ``(B, ...)`` states and actions into them through
-    views made once, replays, and returns the step's states and outputs
-    cloned in the ``(B, ...)`` layout: new tensors, which the next replay
-    does not overwrite.  A replay adds to the port's counters what the
-    recorded step counted: the device does that work on every replay."""
-
-    def __init__(self, advance, states, actions):
-        contiguous = lambda x: x.clone(memory_format=torch.contiguous_format)  # noqa: E731
-        self.states = tree_map(contiguous, _BatchedEnv._lift(states))
-        self.actions = contiguous(actions.unsqueeze(0))
-        self._state_views = without_config_axis(self.states)
-        self._state_views["step"] = self.states["step"].view(states["step"].shape)
-        self._action_view = self.actions[0]
-        self._graph, self.new_states, self.out = self._record(advance)
-        count("pymgrid.env.graph_captures", 1)
-
-    def _record(self, advance):
-        """Run ``advance`` once eagerly on a side stream, as CUDA graphs want
-        before a capture (its counts dropped: the caller made no such step),
-        then record it; returns the graph and the recorded step's states and
-        outputs, and keeps what the recorded step counted."""
-        with torch.cuda.device(self.actions.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side), profiling.recorded_counts():
-                advance(self.states, self.actions)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with profiling.recorded_counts() as self._counts, _HostValuesOnDevice():
-                with torch.cuda.graph(graph):
-                    new_states, out = advance(self.states, self.actions)
-        return graph, new_states, out
-
-    def __call__(self, states, actions):
-        _copy_into(self._state_views, states)
-        self._action_view.copy_(actions)
-        with span("pymgrid.env.graph_replay"):
-            self._graph.replay()
-        count("pymgrid.env.graph_replays", 1)
-        for name, n in self._counts.items():
-            count(name, n)
-        return (tree_map(lambda x: x[0].clone(), self.new_states),
-                StepOutput(*[None if f is None else f[0].clone() for f in self.out]))
 
 
 class _BatchedEnv:
@@ -189,8 +101,8 @@ class _BatchedEnv:
         self.obs_dim = self.spec.obs_dim
         self._reset_fn = make_reset_fn(self.spec)
         self._step_fns = {}    # (with_obs, with_log) -> engine step
-        self._graph_steps = _graphable(self.device, self.spec)
-        self._graphs = {}      # signature -> its _EnvStepGraph
+        self._graph_steps = graphable(self.device, self.spec)
+        self._graphs = {}      # signature -> (Recording, state views, action view)
 
     def _engine_action(self, states, actions):
         raise NotImplementedError
@@ -227,12 +139,8 @@ class _BatchedEnv:
             action = self._engine_action(states, actions)
         new_states, out = step_fn(self.params, states, action)
         if self.auto_reset:
-            with span("pymgrid.engine.auto_reset"):
-                starts = self.params["initial_step"].to(torch.int32).unsqueeze(1)
-                fresh = self._reset_fn(self.params, starts.expand(new_states["step"].shape),
-                                       new_states.get("rng"))
-                count("pymgrid.engine.fresh_states", new_states["step"].numel())
-                new_states = select_state(out.done, fresh, new_states)
+            new_states = auto_reset(self._reset_fn, self.params, new_states, out,
+                                    lambda s: initial_steps(self.params, s["step"]))
         return new_states, out
 
     @staticmethod
@@ -266,26 +174,42 @@ class _BatchedEnv:
         with span("pymgrid.env.step"):
             actions = self._actions(actions, time_major=False)
             if self._graph_steps and not (actions.requires_grad or any(
-                    x.requires_grad for x in _leaves(states))):
+                    x.requires_grad for x in tree_leaves(states))):
                 return self._replayed(states, actions, keep_logs)
             new_states, out = self._advance(self._step_fn(True, keep_logs),
                                             self._lift(states), actions.unsqueeze(0))
             return without_config_axis(new_states), drop_config_axis(out)
 
     def _replayed(self, states, actions, keep_logs):
-        """The step as a replay of the recording of its signature, recorded
-        at the signature's first call."""
-        params = _addresses(self.params)
-        signature = (bool(keep_logs), _layout(states), actions.shape, actions.dtype, params)
-        graph = self._graphs.get(signature)
-        if graph is None:
+        """The step as a replay of its signature's recording, made at the
+        signature's first call.  The caller's ``(B, ...)`` inputs go in
+        through ``(B, ...)`` views of the recording's ``(1, B, ...)`` ones,
+        made once; the outputs come back as clones."""
+        params = tree_addresses(self.params)
+        signature = (bool(keep_logs), tree_layout(states), actions.shape, actions.dtype,
+                     params)
+        entry = self._graphs.get(signature)
+        if entry is None:
             # a recording reads the params' leaves where they were: free
             # those of other params before recording
             self._graphs = {k: g for k, g in self._graphs.items() if k[-1] == params}
             step_fn = self._step_fn(True, keep_logs)
-            graph = self._graphs[signature] = _EnvStepGraph(
-                lambda s, a: self._advance(step_fn, s, a), states, actions)
-        return graph(states, actions)
+            recording = Recording(lambda s, a: self._advance(step_fn, s, a),
+                                  (self._lift(states), actions.unsqueeze(0)))
+            lifted, lifted_actions = recording.inputs
+            views = without_config_axis(lifted)
+            views["step"] = lifted["step"].view(states["step"].shape)
+            entry = self._graphs[signature] = (recording, views, lifted_actions[0])
+            count("pymgrid.env.graph_captures", 1)
+        recording, state_views, action_view = entry
+        copy_into(state_views, states)
+        action_view.copy_(actions)
+        with span("pymgrid.env.graph_replay"):
+            recording.replay()
+        count("pymgrid.env.graph_replays", 1)
+        new_states, out = recording.outputs
+        return (tree_map(lambda x: x[0].clone(), new_states),
+                StepOutput(*[None if f is None else f[0].clone() for f in out]))
 
     def rollout(self, states, action_seq, keep_logs=False, keep_obs=True,
                 shared_step=False):

@@ -31,17 +31,14 @@ window's rows past ``max_start``, which the rollout's copy of the table
 holds as the rows from ``initial_step`` on, so every step reads the row
 the per-step path reads, bitwise.
 
-On a CUDA device the per-step rollout records one step (policy, engine
-step, auto-reset with its restart draw, checksum) as a CUDA graph and
-replays it, one launch a step in place of the step's ~1,400: the same
-kernels on the same inputs, so the outputs are the eager loop's, bitwise.
-The runner keeps one graph per rollout mode and records it again when the
-policy, the batch or the addresses of the params' leaves change.  The
-policy's Python runs once, at the recording: on the card it must be a
-function of ``(params, state)`` on the device, as the port's policies are.
-A spec with a per-replica callable (a module's ``custom_fn``) and the
-block-prefetch rollout, whose step reads a new row window every step, run
-eagerly.
+On a CUDA device the per-step rollout replays one recorded step (policy,
+engine step, auto-reset with its restart draw, checksum;
+:mod:`~pymgrid_tpu_torch.utils.cuda_graph`), one launch in place of ~1,400,
+bitwise.  The runner keeps one recording per rollout mode, made again when
+the policy, the batch or the params' addresses change; the policy's Python
+runs at the recording only, so on the card it must be a function of
+``(params, state)`` on the device.  A ``custom_fn`` spec and the
+block-prefetch rollout, which reads a new row window every step, run eagerly.
 """
 import numpy as np
 import torch
@@ -55,11 +52,12 @@ from pymgrid_tpu_torch.core.engine import (
     make_step_fn,
     needs_keys,
 )
-from pymgrid_tpu_torch.core.params import params_to_torch, stack_configs, tree_map
-from pymgrid_tpu_torch.core.rollout import select_state
+from pymgrid_tpu_torch.core.params import (copy_into, params_to_torch, stack_configs,
+                                           tree_addresses, tree_map)
+from pymgrid_tpu_torch.core.rollout import auto_reset as reset_where_done
 from pymgrid_tpu_torch.core.tables import ensure_tables
 from pymgrid_tpu_torch.parallel.distributed import local_layout
-from pymgrid_tpu_torch.utils import profiling
+from pymgrid_tpu_torch.utils.cuda_graph import Recording, graphable
 from pymgrid_tpu_torch.utils.profiling import count, span
 
 __all__ = ["normalize_to_superset", "build_suite", "SuiteRunner"]
@@ -210,87 +208,6 @@ def _patched_table(table, initial_step, max_start):
     return out
 
 
-def _graphable(device, spec):
-    """Whether the per-step rollout of ``spec`` on ``device`` replays a
-    recorded step: on a CUDA device, where no module runs a per-replica
-    callable (``custom_fn``, any Python a user hands the engine)."""
-    return device.type == "cuda" and all(ref.custom_fn is None for ref in spec.log_order)
-
-
-def _copy_into(dst, src):
-    """Copy the nested state ``src`` into ``dst``'s tensors, in place."""
-    if isinstance(dst, dict):
-        for k in dst:
-            _copy_into(dst[k], src[k])
-    else:
-        dst.copy_(src)
-
-
-def _addresses(params):
-    """Where the params' leaves are, as a recorded graph reads them."""
-    if isinstance(params, dict):
-        return tuple(a for v in params.values() for a in _addresses(v))
-    return ((params.data_ptr(), params.shape, params.stride(), params.dtype),)
-
-
-class _HostScalarsOnDevice(torch.overrides.TorchFunctionMode):
-    """Inside a capture: a scalar made on the device from a Python number
-    (the log row's ``torch.as_tensor(0.0, device=...)``), which copies from
-    the host, is filled on the device instead; the same value, and no copy,
-    which a capture cannot hold."""
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        device = kwargs.get("device")
-        if (func is torch.as_tensor and args and isinstance(args[0], (bool, int, float))
-                and device is not None and torch.device(device).type != "cpu"):
-            host = func(args[0], dtype=kwargs.get("dtype"))
-            return torch.full((), host.item(), dtype=host.dtype, device=device)
-        return func(*args, **kwargs)
-
-
-class _StepGraph:
-    """One step of the per-step rollout, recorded once as a CUDA graph.
-
-    ``step(states, acc)`` advances the nested ``states`` and the checksum
-    ``acc`` in place and returns the step's ``StepOutput``.  The graph reads
-    and writes this object's ``states`` and ``acc``, and each
-    :meth:`replay` leaves the step's outputs in ``out``.  ``signature`` is
-    what else the recording fixed: the policy, the batch, the addresses of
-    the params' leaves.  A replay adds to the port's counters what the
-    recorded step counted: the device does that work on every replay."""
-
-    def __init__(self, step, states, acc, signature):
-        self.signature = signature
-        self.states = tree_map(torch.clone, states)
-        self.acc = acc.clone()
-        self._graph, self.out = self._record(step)
-        count("pymgrid.suite.graph_captures", 1)
-
-    def _record(self, step):
-        """Run ``step`` once eagerly, as CUDA graphs want before a capture,
-        then record it; returns the graph and the recorded step's outputs,
-        and keeps what the recorded step counted."""
-        with torch.cuda.device(self.acc.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                step(self.states, self.acc)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with profiling.recorded_counts() as self._counts, _HostScalarsOnDevice():
-                with torch.cuda.graph(graph):
-                    out = step(self.states, self.acc)
-        return graph, out
-
-    def replay(self):
-        with span("pymgrid.suite.graph_replay"):
-            self._graph.replay()
-        count("pymgrid.suite.graph_replays", 1)
-        for name, n in self._counts.items():
-            count(name, n)
-
-
 class SuiteRunner:
     """Run ``batch_per_config`` replicas of each config in lockstep.
 
@@ -339,8 +256,8 @@ class SuiteRunner:
         # the draws' upper bound on the device, so a recorded step copies
         # nothing from the host
         self._max_start = torch.tensor(self.max_start, dtype=torch.int64, device=self.device)
-        self._graph_steps = _graphable(self.device, self.spec)
-        self._graphs = {}   # rollout mode -> its _StepGraph
+        self._graph_steps = graphable(self.device, self.spec)
+        self._graphs = {}   # rollout mode -> (signature, its Recording)
 
     def _draw(self, initial_step, keys):
         """``randint(fold_in(key, 0x51A7), (), initial_step, max_start)`` per
@@ -448,11 +365,8 @@ class SuiteRunner:
                 action = policy(params, states)
             new_states, out = step_fn(params, states, action)
             if auto_reset:
-                with span("pymgrid.engine.auto_reset"):
-                    fresh = reset_fn(params, reset_target(params, new_states),
-                                     new_states.get("rng"))
-                    count("pymgrid.engine.fresh_states", new_states["step"].numel())
-                    new_states = select_state(out.done, fresh, new_states)
+                new_states = reset_where_done(reset_fn, params, new_states, out,
+                                              lambda s: reset_target(params, s))
             return new_states, out
 
         def step(params, states, acc):
@@ -462,30 +376,34 @@ class SuiteRunner:
 
         def step_in_place(params, states, acc):
             new_states, new_acc, out = step(params, states, acc)
-            _copy_into(states, new_states)
+            copy_into(states, new_states)
             acc.copy_(new_acc)
             return out
 
         def replayed(params, states, acc):
-            """The per-step loop as replays of the mode's recorded step."""
-            signature = (policy, tuple(acc.shape), _addresses(params))
-            graph = self._graphs.get(mode)
-            if graph is None or graph.signature != signature:
+            """The per-step loop as replays of the mode's recorded step, which
+            advances the recording's states and checksum in place."""
+            signature = (policy, tuple(acc.shape), tree_addresses(params))
+            entry = self._graphs.get(mode)
+            if entry is None or entry[0] != signature:
                 self._graphs[mode] = None   # free the old recording's memory first
-                graph = self._graphs[mode] = _StepGraph(
-                    lambda s, a: step_in_place(params, s, a), states, acc, signature)
-            _copy_into(graph.states, states)
-            graph.acc.copy_(acc)
+                entry = self._graphs[mode] = (signature, Recording(
+                    lambda s, a: step_in_place(params, s, a), (states, acc)))
+                count("pymgrid.suite.graph_captures", 1)
+            recording = entry[1]
+            recording.load(states, acc)
             outs = None
             if collect:
                 outs = StepOutput(*[x.new_empty(x.shape[:2] + (n_steps,) + x.shape[2:])
-                                    for x in graph.out])
+                                    for x in recording.outputs])
             for t in range(n_steps):
-                graph.replay()
+                with span("pymgrid.suite.graph_replay"):
+                    recording.replay()
+                count("pymgrid.suite.graph_replays", 1)
                 if collect:
-                    for buf, x in zip(outs, graph.out):
+                    for buf, x in zip(outs, recording.outputs):
                         buf[:, :, t].copy_(x)
-            acc = graph.acc.clone()
+            acc = recording.inputs[1].clone()
             return (acc, outs) if collect else acc
 
         def suite_rollout(params, keys):

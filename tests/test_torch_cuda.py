@@ -16,12 +16,12 @@ from helpers.env_steps import STEP_CASES, actions_of, assert_same_steps, make_en
 from helpers.rollout_checks import assert_same_rollout
 from pymgrid_tpu_torch import Microgrid
 from pymgrid_tpu_torch.algos import SuiteMPC
-from pymgrid_tpu_torch.core import lp
 from pymgrid_tpu_torch.core.params import tree_map
 from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
 from pymgrid_tpu_torch.core.spec import extract_spec
 from pymgrid_tpu_torch.ops import make_rbc_rollout
 from pymgrid_tpu_torch.parallel import SuiteRunner
+from pymgrid_tpu_torch.utils import cuda_graph
 from pymgrid_tpu_torch.utils.profiling import span_totals, trace
 
 pytestmark = pytest.mark.cuda
@@ -88,13 +88,20 @@ def _short_series_suite(T=40, n_configs=3):
     return mgs
 
 
-def _runners(cuda, mgs, batch, start_dtype):
+def _eager(monkeypatch, make):
+    """``make()`` built to run eagerly on the card: its twin replays."""
+    with monkeypatch.context() as patch:
+        patch.setattr(cuda_graph, "available", lambda device: False)
+        return make()
+
+
+def _runners(cuda, monkeypatch, mgs, batch, start_dtype):
     """The same suite twice on the card: one replaying its recorded step,
     one held to the eager loop."""
-    graphed, eager = (SuiteRunner(mgs, batch_per_config=batch, dtype="float32", device=cuda,
-                                  start_dtype=start_dtype) for _ in range(2))
-    assert graphed._graph_steps
-    eager._graph_steps = False
+    make = lambda: SuiteRunner(mgs, batch_per_config=batch, dtype="float32",  # noqa: E731
+                               device=cuda, start_dtype=start_dtype)
+    graphed, eager = make(), _eager(monkeypatch, make)
+    assert graphed._graph_steps and not eager._graph_steps
     return graphed, eager
 
 
@@ -105,14 +112,14 @@ def _runners(cuda, mgs, batch, start_dtype):
     dict(collect=True, randomize_initial_step=False),
     dict(collect=False, randomize_initial_step=False),
 ], ids=["collect-int32", "collect-int64", "throughput", "fixed-collect", "fixed-throughput"])
-def test_graphed_suite_rollout_matches_eager(cuda, mode):
+def test_graphed_suite_rollout_matches_eager(cuda, monkeypatch, mode):
     """Three configs of 40-row series x 16 replicas over 100 steps, every
     replica restarting: the rollout that replays one recorded step equals
     the eager loop bit for bit, in two rollouts in a row on other keys (the
     second loads its states into the recorded step's inputs)."""
     mode = dict(mode)
     start_dtype = mode.pop("start_dtype", torch.int64)
-    graphed, eager = _runners(cuda, _short_series_suite(), 16, start_dtype)
+    graphed, eager = _runners(cuda, monkeypatch, _short_series_suite(), 16, start_dtype)
     policy = make_marginal_cost_policy(graphed.spec)
     fn = graphed.rollout_fn(policy, 100, auto_reset=True, **mode)
     want_fn = eager.rollout_fn(policy, 100, auto_reset=True, **mode)
@@ -125,14 +132,15 @@ def test_graphed_suite_rollout_matches_eager(cuda, mode):
     assert len(graphed._graphs) == 1 and not eager._graphs
 
 
-def test_graph_is_shared_across_lengths_and_recorded_again_for_other_params(cuda, tmp_path):
+def test_graph_is_shared_across_lengths_and_recorded_again_for_other_params(cuda, monkeypatch,
+                                                                            tmp_path):
     """The pymgrid25 suite's collect rollout, int32 restarts, 64 replicas a
     config, under the profiler: an 8-step and a 100-step rollout share one
     recording; a copy of the params (leaves elsewhere) records again, and
     both still equal the eager loop bitwise; each replay counts what the
-    recorded step counted."""
+    recorded step counted, and the recording's warm-up step nothing."""
     mgs = [Microgrid.from_scenario(n) for n in range(25)]
-    graphed, eager = _runners(cuda, mgs, 64, torch.int32)
+    graphed, eager = _runners(cuda, monkeypatch, mgs, 64, torch.int32)
     policy = make_marginal_cost_policy(graphed.spec)
     kw = dict(auto_reset=True, collect=True, randomize_initial_step=True)
     keys = graphed.make_keys(11)
@@ -142,8 +150,7 @@ def test_graph_is_shared_across_lengths_and_recorded_again_for_other_params(cuda
     counters = span_totals()["counters"]
     assert counters["pymgrid.suite.graph_captures"] == 1
     assert counters["pymgrid.suite.graph_replays"] == 108
-    # and the one eager step run before the recording
-    assert counters["pymgrid.engine.fresh_states"] == 109 * 25 * 64
+    assert counters["pymgrid.engine.fresh_states"] == 108 * 25 * 64
     assert_same_rollout(got, eager.rollout_fn(policy, 100, **kw)(eager.params, keys))
 
     params = tree_map(torch.clone, graphed.params)
@@ -153,17 +160,17 @@ def test_graph_is_shared_across_lengths_and_recorded_again_for_other_params(cuda
     assert_same_rollout(got, eager.rollout_fn(policy, 100, **kw)(eager.params, keys))
 
 
-def _envs(cuda, case, batch=64):
+def _envs(cuda, monkeypatch, case, batch=64):
     """``case``'s env twice on the card: one replaying its recorded step,
     one held to the eager step."""
-    graphed, eager = make_env(case, batch, cuda), make_env(case, batch, cuda)
-    assert graphed._graph_steps
-    eager._graph_steps = False
+    graphed = make_env(case, batch, cuda)
+    eager = _eager(monkeypatch, lambda: make_env(case, batch, cuda))
+    assert graphed._graph_steps and not eager._graph_steps
     return graphed, eager
 
 
 @pytest.mark.parametrize("case", STEP_CASES)
-def test_replayed_env_step_matches_eager(cuda, case):
+def test_replayed_env_step_matches_eager(cuda, monkeypatch, case):
     """120 ``step()`` calls of 64 replicas on 25-row series, every replica
     auto-resetting: the env replaying its recorded step returns the eager
     step's states and outputs bit for bit, at every step of the loop, each
@@ -171,19 +178,19 @@ def test_replayed_env_step_matches_eager(cuda, case):
     recording is handed out).  The discrete env with and without logs and
     from a shared step of shape ``(1,)``, the continuous env, and threefry
     gaussian forecasts (``rng`` and ``forecast`` in the states)."""
-    graphed, eager = _envs(cuda, case)
+    graphed, eager = _envs(cuda, monkeypatch, case)
     for seed in (5, 2**31 + 9):
         assert_same_steps(step_loop(graphed, case, 120, seed),
                           step_loop(eager, case, 120, seed))
     assert len(graphed._graphs) == 1 and not eager._graphs
 
 
-def test_env_step_records_once_per_signature(cuda, tmp_path):
+def test_env_step_records_once_per_signature(cuda, monkeypatch, tmp_path):
     """Under the profiler: 20 steps with logs and 10 without record once
     each, and every replayed step counts one ``graph_replays`` and its fresh
     states; a copy of the params records again; both equal the eager step.
     Actions that require grad run the eager step."""
-    graphed, eager = _envs(cuda, "discrete")
+    graphed, eager = _envs(cuda, monkeypatch, "discrete")
     with trace(str(tmp_path / "a"), cuda):
         got = step_loop(graphed, "discrete", 20, seed=7)
         got_lean = step_loop(graphed, "discrete-lean", 10, seed=8)
@@ -202,7 +209,7 @@ def test_env_step_records_once_per_signature(cuda, tmp_path):
     assert len(graphed._graphs) == 1
     assert_same_steps(got, step_loop(eager, "discrete", 20, seed=7), every_replica_done=False)
 
-    continuous, _ = _envs(cuda, "continuous")
+    continuous, _ = _envs(cuda, monkeypatch, "continuous")
     states = continuous.reset()
     actions = actions_of(continuous, np.random.RandomState(4), 1)[0].requires_grad_()
     _, out = continuous.step(states, actions)
@@ -227,16 +234,14 @@ def test_replayed_suite_mpc_matches_eager(cuda, monkeypatch):
     solves (relaxation, pattern chunk, final re-solve) plans and steps bit
     for bit as the eager one."""
     records = []
-    record = lp._RecordedSolves._record
-    monkeypatch.setattr(lp._RecordedSolves, "_record",
-                        lambda self, inputs: records.append(len(inputs[0]))
-                        or record(self, inputs))
+    capture = cuda_graph.Recording._capture
+    monkeypatch.setattr(cuda_graph.Recording, "_capture",
+                        lambda self: records.append(len(self.inputs[0])) or capture(self))
     mgs = [Microgrid.from_scenario(n) for n in range(25)]
     kw = dict(dtype="float32", device=cuda, solver_kind="box", newton_refine=2,
               matmul_precision="float32", enum_bits=3, enum_chunk=16)
     graphed = SuiteMPC(mgs, 60, **kw)
-    monkeypatch.setattr(lp, "_recorded", lambda cuda_graph, device: False)
-    eager = SuiteMPC(mgs, 60, **kw)
+    eager = _eager(monkeypatch, lambda: SuiteMPC(mgs, 60, **kw))
     starts = np.random.default_rng(2**31 + 5).integers(0, graphed.n_steps_year - 48, size=25)
     got, want = graphed.reset(7, starts=starts), eager.reset(7, starts=starts)
     for _ in range(6):

@@ -1,11 +1,11 @@
 """The batched envs' recorded ``step()`` on the CPU.
 
 On a CUDA device ``_BatchedEnv.step`` records one step as a CUDA graph and
-replays it (``parallel/batched_env._EnvStepGraph``).  Here a CPU env runs
-its eager step and records nothing; with ``_graph_steps`` set and the
-recording swapped for an eager stand-in, whose replay writes the step's
-states and outputs into the recorded ones in place as a graph's does, the
-replay path (its input copies, returned copies, one recording per
+replays it (a ``utils/cuda_graph.Recording`` per signature).  Here a CPU
+env runs its eager step and records nothing; built to take the replay path
+with the eager stand-in of ``helpers/graph_standin.py``, whose replay writes
+the step's states and outputs into the recorded ones in place as a graph's
+does, the replay path (its input copies, returned copies, one recording per
 signature and replayed counts) runs on the CPU and equals the eager step
 bitwise.  ``tests/test_torch_cuda.py`` holds the real graph against the
 eager step on the card."""
@@ -13,22 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from helpers.env_steps import (
-    STEP_CASES,
-    actions_of,
-    assert_same_steps,
-    leaves,
-    make_env,
-    step_loop,
-)
+from helpers.env_steps import STEP_CASES, actions_of, assert_same_steps, make_env, step_loop
 from helpers.factories import build_microgrid, module_params
+from helpers.graph_standin import replaying  # noqa: F401  (a fixture)
 import pymgrid_tpu_torch.modules as M
 from pymgrid_tpu_torch.core.params import tree_map
 from pymgrid_tpu_torch.envs import DiscreteMicrogridEnv
 from pymgrid_tpu_torch.parallel import BatchedDiscreteEnv
-from pymgrid_tpu_torch.parallel import batched_env as env_module
-from pymgrid_tpu_torch.parallel.suite import _graphable
-from pymgrid_tpu_torch.utils import profiling
+from pymgrid_tpu_torch.utils.cuda_graph import graphable
 from pymgrid_tpu_torch.utils.profiling import span_totals, trace
 
 torch.set_num_threads(1)
@@ -36,37 +28,15 @@ torch.set_num_threads(1)
 N_STEPS = 120
 
 
-class _EagerReplay:
-    """A recorded step's stand-in on the CPU: a replay runs the step again
-    on the recording's inputs and writes its states and outputs into the
-    recorded ones, in place, as a CUDA graph's replay does."""
-
-    def __init__(self, graph, advance):
-        self.graph, self.advance = graph, advance
-
-    def replay(self):
-        with profiling.recorded_counts():   # the replay adds the recorded counts
-            new = self.advance(self.graph.states, self.graph.actions)
-        for dst, src in zip(leaves((self.graph.new_states, self.graph.out)), leaves(new),
-                            strict=True):
-            dst.copy_(src)
-
-
 @pytest.fixture
-def replayed_on_the_cpu(monkeypatch):
-    """Envs on the CPU that take the replay path: ``_EnvStepGraph`` records
-    a step by running it once and replays it by running it again."""
-    def record(self, advance):
-        with profiling.recorded_counts() as self._counts:
-            new_states, out = advance(self.states, self.actions)
-        return _EagerReplay(self, advance), new_states, out
-
-    monkeypatch.setattr(env_module._EnvStepGraph, "_record", record)
-
+def replayed_on_the_cpu(replaying):
+    """``case``'s env twice on the CPU: one built to take the replay path,
+    its recording the eager stand-in, and one that runs the eager step."""
     def make(case, batch=4):
-        graphed, eager = make_env(case, batch, "cpu"), make_env(case, batch, "cpu")
-        graphed._graph_steps = True
-        return graphed, eager
+        with replaying():
+            graphed = make_env(case, batch, "cpu")
+        assert graphed._graph_steps
+        return graphed, make_env(case, batch, "cpu")
 
     return make
 
@@ -100,8 +70,8 @@ def test_graph_predicate_refuses_a_custom_fn(callable_cost):
         params["genset"]["genset_cost"] = lambda production: 0.4 * production
     mods, _ = build_microgrid(M, params)
     env = BatchedDiscreteEnv(DiscreteMicrogridEnv(mods), 2, "float32", device="cpu")
-    assert _graphable(torch.device("cuda"), env.spec) is not callable_cost
-    assert not _graphable(torch.device("cpu"), env.spec)
+    assert graphable(torch.device("cuda"), env.spec) is not callable_cost
+    assert not graphable(torch.device("cpu"), env.spec)
     assert not env._graph_steps
 
 
@@ -165,22 +135,3 @@ def test_input_requiring_grad_runs_eagerly(replayed_on_the_cpu):
     _, replayed = graphed.step(states, actions.detach())
     assert len(graphed._graphs) == 1 and not replayed.reward.requires_grad
     assert torch.equal(replayed.reward, out.reward.detach())
-
-
-def test_host_arrays_are_filled_on_the_device():
-    """Inside a recording, ``torch.as_tensor`` of a 0-d numpy array bound for
-    a device (the threefry draws' bounds and constants: a copy from the
-    host, which a capture refuses) becomes a fill there, in numpy's dtype or
-    the one given; Python numbers still do, and host tensors pass as they
-    are."""
-    with env_module._HostValuesOnDevice():
-        made = [torch.as_tensor(np.asarray(0.5, np.float32), device="meta"),
-                torch.as_tensor(np.asarray(2**40), device="meta"),
-                torch.as_tensor(np.asarray(1.5), dtype=torch.float32, device="meta"),
-                torch.as_tensor(np.asarray(0.5), device="meta"),
-                torch.as_tensor(0.25, device="meta")]
-        host = torch.as_tensor(np.asarray(2.5), device="cpu")
-    assert [(x.device.type, x.dtype, x.dim()) for x in made] == [
-        ("meta", torch.float32, 0), ("meta", torch.int64, 0), ("meta", torch.float32, 0),
-        ("meta", torch.float64, 0), ("meta", torch.float32, 0)]
-    assert host.dtype == torch.float64 and host.item() == 2.5

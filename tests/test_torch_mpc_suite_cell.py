@@ -10,7 +10,8 @@ pymgrid's horizon problem with the first hour fixed to them is the free
 optimum's.  Under a profiler capture one step fires the planner's spans,
 whose self times add up to the step's, and counts its LPs and iterations.
 The card's path, each solve shape recorded once and replayed, runs here
-with an eager stand-in for the graph, held bitwise against the eager solves.
+with the eager stand-in of ``helpers/graph_standin.py`` for the graph, held
+bitwise against the eager solves.
 """
 import importlib.util
 import json
@@ -21,9 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from helpers.graph_standin import replaying  # noqa: F401  (a fixture)
 from pymgrid_tpu_torch import Microgrid
 from pymgrid_tpu_torch.algos import SuiteMPC
 from pymgrid_tpu_torch.core import lp
+from pymgrid_tpu_torch.utils import cuda_graph
 from pymgrid_tpu_torch.utils.profiling import span_totals, trace
 
 torch.set_num_threads(1)
@@ -198,21 +201,8 @@ def test_step_fires_the_planner_spans_and_counts(microgrids, tmp_path):
                                   "pymgrid.lp.iterations": 130}
 
 
-class _EagerGraph:
-    """A recorded solve's stand-in on the CPU: a replay solves again on the
-    recording's inputs and writes the recording's outputs."""
-
-    def __init__(self, solve, inputs, outputs):
-        self.solve, self.inputs, self.outputs = solve, inputs, outputs
-
-    def replay(self):
-        x, info = self.solve(*self.inputs)
-        self.outputs[0].copy_(x)
-        for k, v in info.items():
-            self.outputs[1][k].copy_(v)
-
-
-def test_replayed_solves_match_the_eager_planner(microgrids, monkeypatch, tmp_path):
+def test_replayed_solves_match_the_eager_planner(microgrids, monkeypatch, replaying,
+                                                 tmp_path):
     """The planner's solves through recordings, as on the card: one per
     solve shape (relaxation, the 8-pattern chunk, the final re-solve) made
     in the first hour and replayed in the next ones; plans, states and
@@ -220,15 +210,11 @@ def test_replayed_solves_match_the_eager_planner(microgrids, monkeypatch, tmp_pa
     hour survives the next hour's replays; spans and counters unchanged."""
     eager = _suite(microgrids, "float32")
     records = []
-
-    def record(self, inputs):
-        records.append(len(inputs[0]))
-        outputs = self._solve(*inputs)
-        return _EagerGraph(self._solve, inputs, outputs), inputs, outputs
-
-    monkeypatch.setattr(lp._RecordedSolves, "_record", record)
-    monkeypatch.setattr(lp, "_recorded", lambda cuda_graph, device: cuda_graph)
-    graphed = _suite(microgrids, "float32")
+    capture = cuda_graph.Recording._capture
+    monkeypatch.setattr(cuda_graph.Recording, "_capture",
+                        lambda self: records.append(len(self.inputs[0])) or capture(self))
+    with replaying():
+        graphed = _suite(microgrids, "float32")
     S = len(SCENARIOS)
     starts = _starts(graphed, 5)
     got, want = graphed.reset(0, starts=starts), eager.reset(0, starts=starts)
@@ -243,8 +229,7 @@ def test_replayed_solves_match_the_eager_planner(microgrids, monkeypatch, tmp_pa
     assert set(totals["spans"]) == set(SPANS) and sorted(records) == [S, S, 8 * S]
     assert totals["counters"] == {"pymgrid.lp.problems": 10 * S, "pymgrid.lp.iterations": 130}
     # what a call returned is its own: the next replay leaves it as it was
-    solves = lp._RecordedSolves(lambda c, b, h: (c + b, {"objective": (c * h).sum(1)}),
-                                torch.device("cpu"))
+    solves = lp._replayed(lambda c, b, h: (c + b, {"objective": (c * h).sum(1)}))
     first = solves(*torch.ones(3, 2, 4))
     kept = (first[0].clone(), first[1]["objective"].clone())
     solves(*torch.zeros(3, 2, 4))

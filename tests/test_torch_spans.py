@@ -197,10 +197,10 @@ def test_suite_steps_run_eagerly_on_the_cpu_and_with_callables(runner, tmp_path)
     for a spec with a per-replica callable: on the CPU the rollout runs its
     eager loop, and no ``pymgrid.suite.graph_*`` span or counter fires."""
     from pymgrid_tpu_torch.modules import GensetModule
-    from pymgrid_tpu_torch.parallel.suite import _graphable
+    from pymgrid_tpu_torch.utils.cuda_graph import graphable
 
     cuda = torch.device("cuda")
-    assert not runner._graph_steps and _graphable(cuda, runner.spec)
+    assert not runner._graph_steps and graphable(cuda, runner.spec)
     fn = runner.rollout_fn(make_marginal_cost_policy(runner.spec), T, auto_reset=True,
                            collect=True, randomize_initial_step=True)
     with trace(str(tmp_path), device="cpu"):
@@ -216,5 +216,5 @@ def test_suite_steps_run_eagerly_on_the_cpu_and_with_callables(runner, tmp_path)
     with_callable = SuiteRunner([microgrid], batch_per_config=2, dtype="float32",
                                 device="cpu")
     assert any(ref.custom_fn is not None for ref in with_callable.spec.log_order)
-    assert not _graphable(cuda, with_callable.spec)
-    assert not _graphable(torch.device("cpu"), runner.spec)
+    assert not graphable(cuda, with_callable.spec)
+    assert not graphable(torch.device("cpu"), runner.spec)

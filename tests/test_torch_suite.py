@@ -26,6 +26,7 @@ import torch
 
 import pymgrid_tpu
 import pymgrid_tpu_torch
+from helpers.graph_standin import replaying  # noqa: F401  (a fixture)
 from helpers.rollout_checks import assert_same_rollout
 from pymgrid_tpu.core.rollout import make_marginal_cost_policy as jax_mc_policy
 from pymgrid_tpu.parallel.suite import SuiteRunner as JaxSuiteRunner
@@ -36,7 +37,6 @@ from pymgrid_tpu_torch.core.params import tree_map
 from pymgrid_tpu_torch.core.rollout import make_marginal_cost_policy
 from pymgrid_tpu_torch.parallel import suite as suite_module
 from pymgrid_tpu_torch.parallel.suite import SuiteRunner
-from pymgrid_tpu_torch.utils import profiling
 from pymgrid_tpu_torch.utils.profiling import span_totals, trace
 
 torch.set_num_threads(1)
@@ -496,35 +496,16 @@ def test_build_suite_include_genset_matches_jax(include_genset):
     compare(jparams, params, ())
 
 
-class _EagerReplay:
-    """A recorded step's stand-in on the CPU: a replay runs the step again
-    on the recording's inputs, and its outputs become the recording's."""
-
-    def __init__(self, graph, step):
-        self.graph, self.step = graph, step
-
-    def replay(self):
-        with profiling.recorded_counts():   # the replay adds the recorded counts
-            self.graph.out = self.step(self.graph.states, self.graph.acc)
-
-
 @pytest.fixture
-def replayed_on_the_cpu(monkeypatch):
-    """The suite's graph path on the CPU: a runner takes it once its
-    ``_graph_steps`` is set, and ``_StepGraph`` records a step by running it
-    once and replays it by running it again."""
-    def record(self, step):
-        with profiling.recorded_counts() as self._counts:
-            out = step(self.states, self.acc)
-        return _EagerReplay(self, step), out
-
-    monkeypatch.setattr(suite_module._StepGraph, "_record", record)
-
+def replayed_on_the_cpu(replaying):
+    """The same suite twice on the CPU: one built to take the graph path,
+    its recording the eager stand-in of ``helpers/graph_standin.py``, and
+    one that runs the eager loop."""
     def make(mgs, B, **kw):
-        graphed, eager = (SuiteRunner(mgs, batch_per_config=B, device="cpu", **kw)
-                          for _ in range(2))
-        graphed._graph_steps = True
-        return graphed, eager
+        with replaying():
+            graphed = SuiteRunner(mgs, batch_per_config=B, device="cpu", **kw)
+        assert graphed._graph_steps
+        return graphed, SuiteRunner(mgs, batch_per_config=B, device="cpu", **kw)
 
     return make
 
@@ -598,20 +579,3 @@ def test_replayed_step_is_recorded_again_for_other_params_or_policy(replayed_on_
     blockable.rollout_fn(policy, 16, auto_reset=True, randomize_initial_step=True)(
         blockable.params, blockable.make_keys(1))
     assert len(block_gathers) == 2 and not blockable._graphs
-
-
-def test_host_scalars_are_filled_on_the_device():
-    """Inside a recording, ``torch.as_tensor`` of a Python number bound for
-    a device (a copy from the host, which a capture refuses) becomes a fill
-    there, with the dtype ``as_tensor`` infers or is given; tensors, host
-    tensors and other calls pass as they are."""
-    with suite_module._HostScalarsOnDevice():
-        made = [torch.as_tensor(0.0, device="meta"), torch.as_tensor(3, device="meta"),
-                torch.as_tensor(True, device="meta"),
-                torch.as_tensor(0.5, dtype=torch.float64, device="meta")]
-        host = torch.as_tensor(2.5, device="cpu")
-        same = torch.as_tensor(host, device="cpu")
-    assert [(x.device.type, x.dtype, x.dim()) for x in made] == [
-        ("meta", torch.float32, 0), ("meta", torch.int64, 0), ("meta", torch.bool, 0),
-        ("meta", torch.float64, 0)]
-    assert host.item() == 2.5 and same is host
