@@ -8,9 +8,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 It refuses to run (non-zero exit, no result) without CUDA.  Phases, each of
 which fails the run on error:
 
-1. build      nvcc-compile ``pymgrid_tpu_torch/csrc/rbc_rollout.cu`` (sm_90a)
-              and print ptxas' registers, spills and shared memory for each
-              of its 8 kernel variants.
+1. build      nvcc-compile ``pymgrid_tpu_torch/csrc/rbc_rollout.cu`` and
+              ``csrc/box_ipm.cu`` (sm_90a) and print ptxas' registers, spills
+              and shared memory for each of their kernels (rbc_rollout's 8
+              variants, the box IPM's one).
 2. main path  with every kernel launch count at 0, through the user entry
               points, every microgrid built by the port's own host layer
               (``pymgrid_tpu_torch.Microgrid.from_scenario``; nothing of the
@@ -64,6 +65,12 @@ which fails the run on error:
               sorted costs).  24 steps each, but the float32 ``BatchedMPC``'s
               6.  Depth cuts for the time limit when phases 8-10 came in:
               ``SuiteMPC`` from 48 steps, the float32 ``BatchedMPC`` from 24.
+              The float32 ``SuiteMPC``'s box-IPM solves run in the kernel
+              ``csrc/box_ipm.cu``, one launch a solve: counted from 0 over
+              that run (``pymgrid.lp.kernel_solves``, the count of phase 9's
+              ``--mpc-suite`` added) and equal to its box-IPM solves; the
+              inputs of each solver's first 4 solves (the enumeration's 2
+              hours, the final re-solve's 4) are kept for phase 7.
 6. training   ``pymgrid_tpu_torch.examples`` at the published widths, both
               stepped by optax's Adam (``utils.optax_adam.Adam``): first
               that optimizer alone, one float32 gradient stream over A2C's
@@ -89,7 +96,16 @@ which fails the run on error:
               bitwise (``torch.equal``): at the main-path shape, on all 25
               scenarios at 1024 x 64 (each scenario's kernel variant printed)
               and on scenario 1 (genset, weak grid) at 4096 x 8759; kernel and
-              plain times, and the kernel's bound.
+              plain times, and the kernel's bound.  Then the box IPM's kernel
+              against the op-by-op solve (its plain PyTorch version) on phase
+              5's kept LPs, each of the three solve shapes (relaxation 25
+              problems x 35 iterations, pattern chunk 200 x 35, final re-solve
+              25 x 60 with 2 refinements): the kernel's objectives within
+              twice the op path's largest distance to HiGHS's optimum
+              (relative to 1 + |J*|), its residuals below 1e-2, where the
+              float32 planner takes a solve as infeasible; at one hour's shapes the kernel's device time
+              (torch.profiler, mean of 10 eager launches), the op path's
+              (CUDA events, replayed as the planner does) and the bound.
 
 8. keys       JAX's draws on the card: ``make_random_policy`` at 65536
               replicas of scenario 0 (one draw and step; actions bitwise vs
@@ -136,8 +152,11 @@ which fails the run on error:
 
 Phases 8-12 run before phase 7.  Every time printed carries the card's name
 and power limit.  The line before
-the last is the kernels' JSON record; the last line is the result JSON.
+the last is the kernels' JSON record (per kernel: its launches on the path,
+its check, its time, its plain version's and its bound); the last line is
+the result JSON.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -209,14 +228,15 @@ def sweep_inputs(scenario, batch, device):
     return spec, params, init
 
 
-def phase_build():
+def phase_build(names=("rbc_rollout", "box_ipm")):
     """Build the kernels; returns the seconds and each build's ptxas lines."""
     from pymgrid_tpu_torch.ops._build import build_report, load_library
 
     t0 = time.perf_counter()
-    load_library("rbc_rollout")
+    for name in names:
+        load_library(name)
     seconds = time.perf_counter() - t0
-    return seconds, {"rbc_rollout": build_report("rbc_rollout")}
+    return seconds, {name: build_report(name) for name in names}
 
 
 def phase_kernel_sweep(device, batch, n_steps, scenario=0):
@@ -717,14 +737,51 @@ def _costs(rewards):
     return -np.asarray(rewards, np.float64).sum(axis=0)
 
 
-def phase_suite_mpc(device, n_scenarios=25, n_steps=48, held=(0, 4, 1), rtol=0.02):
+@contextlib.contextmanager
+def _recorded_box_solvers(keep_calls):
+    """Inside the block every box-IPM solver that ``SuiteMPC`` builds is
+    recorded: ``{"args": (K_eq, K_in), "kw": ..., "calls": [(c, b, h), ...],
+    "n_calls": n}``, with copies of the inputs of its first ``keep_calls``
+    solves, in the order they were built."""
+    from pymgrid_tpu_torch.algos import mpc_suite
+
+    factory = mpc_suite.make_batched_box_ipm_solver
+    made = []
+
+    def recording(K_eq, K_in, **kw):
+        solve = factory(K_eq, K_in, **kw)
+        entry = {"args": (K_eq, K_in), "kw": kw, "calls": [], "n_calls": 0}
+        made.append(entry)
+
+        def run(c, b, h):
+            if len(entry["calls"]) < keep_calls:
+                entry["calls"].append(tuple(v.clone() for v in (c, b, h)))
+            entry["n_calls"] += 1
+            return solve(c, b, h)
+        return run
+
+    mpc_suite.make_batched_box_ipm_solver = recording
+    try:
+        yield made
+    finally:
+        mpc_suite.make_batched_box_ipm_solver = factory
+
+
+def phase_suite_mpc(device, n_scenarios=25, n_steps=48, held=(0, 4, 1), rtol=0.02,
+                    keep_calls=4):
     """``SuiteMPC`` over scenarios ``0..n_scenarios-1`` in the published chip
     mode (float32, box IPM, ``enum_bits=3``, ``enum_chunk=16``, ``iters=60``,
     ``newton_refine=2``) and the same run in float64; every reward finite,
     the ``held`` scenarios' float32 costs within ``rtol`` of float64 (the bar
-    of ``tests/test_mpc_suite.py::test_suite_mpc_chip_mode_f32_parity``)."""
+    of ``tests/test_mpc_suite.py::test_suite_mpc_chip_mode_f32_parity``).
+    The float32 run's solves in the box IPM's kernel are counted
+    (``kernel_solves``: one launch each, eager or replayed) beside its
+    box-IPM solves (``box_solves``), and its two solvers (the final re-solve's
+    and the enumeration's) kept with the inputs of their first
+    ``keep_calls`` solves, for :func:`phase_box_ipm`."""
     from pymgrid_tpu_torch import Microgrid
     from pymgrid_tpu_torch.algos import SuiteMPC
+    from pymgrid_tpu_torch.utils.profiling import recorded_counts
 
     def run(dtype, **kw):
         mgs = [Microgrid.from_scenario(n) for n in range(n_scenarios)]
@@ -734,7 +791,8 @@ def phase_suite_mpc(device, n_scenarios=25, n_steps=48, held=(0, 4, 1), rtol=0.0
                f"suite MPC {dtype}: non-finite or misshapen rewards")
         return _costs(rewards), seconds
 
-    cost32, s32 = run("float32", iters=60, newton_refine=2, matmul_precision="float32")
+    with _recorded_box_solvers(keep_calls) as solvers, recorded_counts() as counts:
+        cost32, s32 = run("float32", iters=60, newton_refine=2, matmul_precision="float32")
     cost64, s64 = run("float64")
     gap = np.abs(cost32 / cost64 - 1.0)
     for n in held:
@@ -742,7 +800,9 @@ def phase_suite_mpc(device, n_scenarios=25, n_steps=48, held=(0, 4, 1), rtol=0.0
                               f"float64 {cost64[n]:.2f} ({gap[n]:.3%})")
     return {"cost32": cost32, "cost64": cost64, "seconds32": s32, "seconds64": s64,
             "ms_per_hour32": s32 / n_steps * 1e3, "ms_per_hour64": s64 / n_steps * 1e3,
-            "max_rel_gap": float(gap.max()), "held_max_rel_gap": float(gap[list(held)].max())}
+            "max_rel_gap": float(gap.max()), "held_max_rel_gap": float(gap[list(held)].max()),
+            "kernel_solves": counts.get("pymgrid.lp.kernel_solves", 0),
+            "box_solves": sum(e["n_calls"] for e in solvers), "box_solvers": solvers}
 
 
 def phase_batched_mpc(device, batch=1024, n_steps=24, n_steps32=6, scenario=1,
@@ -1294,11 +1354,13 @@ def phase_tables_mpc_suite(device, out_dir, scenarios=(0, 1), n_steps=24):
     import re
 
     from pymgrid_tpu_torch.tools import run_benchmarks
+    from pymgrid_tpu_torch.utils.profiling import recorded_counts
 
     args = run_benchmarks.parse_args(["--mpc-suite", "--device", str(device), "--scenarios",
                                       ",".join(map(str, scenarios)), "--out", str(out_dir)])
-    (rows, report), seconds = _timed(lambda: run_benchmarks.run_mpc_suite(args, n_steps),
-                                     device)
+    with recorded_counts() as counts:
+        (rows, report), seconds = _timed(lambda: run_benchmarks.run_mpc_suite(args, n_steps),
+                                         device)
     _check([r[0] for r in rows] == list(scenarios)
            and all(np.isfinite(r[1]) and r[2] == n_steps for r in rows),
            f"tables/mpc_suite: rows {rows}")
@@ -1308,7 +1370,8 @@ def phase_tables_mpc_suite(device, out_dir, scenarios=(0, 1), n_steps=24):
                is not None, f"tables/mpc_suite: the report does not hold scenario {n}'s "
                             f"cost {cost:,.2f}")
     return {"costs": [r[1] for r in rows], "seconds": seconds,
-            "ms_per_hour": seconds / n_steps * 1e3}
+            "ms_per_hour": seconds / n_steps * 1e3,
+            "kernel_solves": counts.get("pymgrid.lp.kernel_solves", 0)}
 
 
 _COST_LINE = r"^  (.+): (-?[\d,]+\.\d\d)$"
@@ -1484,6 +1547,135 @@ def phase_kernel_vs_plain(sweep, device, genset_batch=4096, genset_steps=8759):
             "genset_variant": r.variant}
 
 
+def _op_box_solver(K_eq, K_in, kw):
+    """The box IPM's solver built with the op-by-op loop, wherever it runs."""
+    from pymgrid_tpu_torch.core import lp
+
+    runs = lp._box_kernel_runs
+    lp._box_kernel_runs = lambda *args: False
+    try:
+        return lp.make_batched_box_ipm_solver(K_eq, K_in, **kw)
+    finally:
+        lp._box_kernel_runs = runs
+
+
+def _highs_objectives(K_eq, K_in, c, b, h):
+    """Each LP's optimal objective by HiGHS, in float64 (``x >= 0``,
+    problem ``p`` on matrix ``p % S``)."""
+    from scipy.optimize import linprog
+
+    K_eq, K_in = (np.asarray(K, np.float64) for K in (K_eq, K_in))
+    K_eq, K_in = (K if K.ndim == 3 else K[None] for K in (K_eq, K_in))
+    c, b, h = (v.double().cpu().numpy() for v in (c, b, h))
+    S, objs = K_eq.shape[0], []
+    for p in range(c.shape[0]):
+        res = linprog(c[p], A_ub=K_in[p % S], b_ub=h[p], A_eq=K_eq[p % S], b_eq=b[p],
+                      bounds=(0, None), method="highs")
+        _check(res.success, f"HiGHS failed on LP {p}: {res.message}")
+        objs.append(res.fun)
+    return np.array(objs)
+
+
+def _kernel_device_ms(fn, iters, name="box_ipm_kernel"):
+    """Mean device milliseconds of the kernel ``name`` over ``iters`` calls
+    of ``fn`` under ``torch.profiler``, after one call to warm up; each
+    call must launch it once."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    _check(len(times) == iters, f"{name}: {len(times)} device events in {iters} calls")
+    return sum(times) / iters / 1e3
+
+
+def phase_box_ipm(device, solvers, timing_iters=10, residual_tol=1e-2):
+    """The box IPM's kernel (``csrc/box_ipm.cu``) against the op-by-op solve,
+    its plain PyTorch version, on the LPs that :func:`phase_suite_mpc`'s
+    float32 planner solved (``solvers``: its final re-solve's and its
+    enumeration's solver, each with the inputs of its first solves), for each
+    solve shape: the relaxation, the pattern chunk, the final re-solve.  The
+    kernel must run on one side (``pymgrid.lp.kernel_solves``) and not on
+    the other; its objectives must lie within twice the op path's largest
+    distance to HiGHS's optimum of the LP (relative to ``1 + |J*|``), its
+    outputs be finite, and its residuals below ``residual_tol``, the line
+    past which the port's float32 planner takes a solve as infeasible
+    (``BatchedMPC``'s default; both paths end far below it, at float32's
+    rounding, where two solvers that round differently are not ordered).  At
+    one hour's shapes, on the card: the kernel's device time (mean of
+    ``timing_iters`` eager launches), the op path's (CUDA events, replayed
+    as the planner does) and the kernel's bound
+    (:func:`pymgrid_tpu_torch.ops.box_ipm.bound_ms`).  On a CPU both sides
+    run the op path and no time is taken."""
+    import torch
+
+    from pymgrid_tpu_torch.core import lp
+    from pymgrid_tpu_torch.ops import box_ipm
+    from pymgrid_tpu_torch.utils.profiling import recorded_counts
+
+    cuda = torch.device(device).type == "cuda"
+    final, enum = solvers
+    n_relax = final["calls"][0][0].shape[0]     # one problem a scenario
+    shapes = {"relaxation": (enum, [v for v in enum["calls"] if len(v[0]) == n_relax]),
+              "chunk": (enum, [v for v in enum["calls"] if len(v[0]) != n_relax]),
+              "final": (final, final["calls"])}
+    out = {}
+    for name, (entry, calls) in shapes.items():
+        _check(len(calls) > 0, f"box IPM {name}: no solve recorded")
+        K_eq, K_in = entry["args"]
+        kw = entry["kw"]
+        c, b, h = (torch.cat(parts) for parts in zip(*calls))
+        with recorded_counts() as counts:
+            x_k, info_k = lp.make_batched_box_ipm_solver(K_eq, K_in, **kw)(c, b, h)
+        _check(counts.get("pymgrid.lp.kernel_solves", 0) == int(cuda),
+               f"box IPM {name}: the kernel ran {counts} (CUDA: {cuda})")
+        ops = _op_box_solver(K_eq, K_in, kw)
+        with recorded_counts() as counts:
+            x_o, info_o = ops(c, b, h)
+        _check("pymgrid.lp.kernel_solves" not in counts, f"box IPM {name}: the op path "
+                                                         f"ran the kernel")
+        _sync(device)
+        j_star = _highs_objectives(K_eq, K_in, c, b, h)
+        scale = 1.0 + np.abs(j_star)
+        obj_k, obj_o = (i["objective"].double().cpu().numpy() for i in (info_k, info_o))
+        op_gap = float((np.abs(obj_o - j_star) / scale).max())
+        kernel_gap = float((np.abs(obj_k - j_star) / scale).max())
+        kernel_vs_op = float((np.abs(obj_k - obj_o) / scale).max())
+        r_k, r_o = info_k["residual"].max().item(), info_o["residual"].max().item()
+        _check(bool(torch.isfinite(x_k).all()) and bool(torch.isfinite(info_k["gap"]).all()),
+               f"box IPM {name}: non-finite kernel output")
+        _check(kernel_gap <= 2 * op_gap and kernel_vs_op <= 2 * op_gap,
+               f"box IPM {name}: kernel objectives {kernel_gap:.3e} from HiGHS's and "
+               f"{kernel_vs_op:.3e} from the op path's, limit {2 * op_gap:.3e}")
+        _check(r_k <= residual_tol, f"box IPM {name}: kernel residual {r_k:.3e} (op "
+                                    f"{r_o:.3e}) above {residual_tol}")
+
+        stack = np.asarray(K_eq)
+        S, me, n = stack.shape if stack.ndim == 3 else (1, *stack.shape)
+        c1, b1, h1 = calls[0]
+        row = {"lps": len(c), "problems": len(c1), "iters": kw["iters"],
+               "refine": kw["newton_refine"], "op_obj_gap": op_gap,
+               "kernel_obj_gap": kernel_gap, "kernel_vs_op": kernel_vs_op,
+               "residual": r_k, "residual_op": r_o, "residual_limit": residual_tol,
+               "rejected": int(info_k["rejected"].sum()),
+               "rejected_op": int(info_o["rejected"].sum()),
+               "bound_ms": box_ipm.bound_ms(len(c1), S, me, n, kw["iters"], kw["newton_refine"]),
+               "ms": None, "plain_ms": None}
+        if cuda:
+            eager = lp.make_batched_box_ipm_solver(K_eq, K_in, **dict(kw, cuda_graph=False))
+            row["ms"] = _kernel_device_ms(lambda: eager(c1, b1, h1), timing_iters)
+            row["plain_ms"] = _event_ms(lambda: ops(c1, b1, h1), timing_iters)
+        out[name] = row
+    return out
+
+
 def main():
     import torch
 
@@ -1500,7 +1692,8 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     build_s, reports = phase_build()
-    print(f"build rbc_rollout.cu: {build_s:.2f} s {tag}", flush=True)
+    print(f"build {', '.join(f'{name}.cu' for name in reports)}: {build_s:.2f} s {tag}",
+          flush=True)
     for name, report in reports.items():
         for line in report.splitlines():
             if "Used" in line or "spill" in line or "entry function" in line:
@@ -1565,13 +1758,19 @@ def main():
     print(f"surfaces/callable continuous env: float64 on the card bitwise vs host env (4 "
           f"replicas x 100 steps); rollout bitwise vs step loop {tag}", flush=True)
 
-    # ---- on-device planners (no kernel of the port on their path) --------
+    # ---- on-device planners (the box IPM's kernel on SuiteMPC's path) -----
     sm = phase_suite_mpc(device, n_steps=24)
+    box_launches = sm["kernel_solves"]
+    _check(box_launches == sm["box_solves"] > 0,
+           f"suite_mpc float32: {box_launches} box_ipm_kernel launches in "
+           f"{sm['box_solves']} box-IPM solves")
     print(f"planners/suite_mpc: 25 scenarios x 24 steps, H=24: float32 chip mode "
           f"{sm['seconds32']:.2f} s ({sm['ms_per_hour32']:.1f} ms per simulated hour), "
           f"float64 {sm['seconds64']:.2f} s ({sm['ms_per_hour64']:.1f} ms per hour); max rel "
           f"gap f32 vs f64 {sm['max_rel_gap']:.3e} (scenarios 0, 4, 1: "
           f"{sm['held_max_rel_gap']:.3e} < 2%) {tag}", flush=True)
+    print(f"planners/suite_mpc: float32 {sm['box_solves']} box-IPM solves, "
+          f"{box_launches} box_ipm_kernel launches", flush=True)
     print("planners/suite_mpc costs f32: " + json.dumps([round(c, 4) for c in sm["cost32"]]),
           flush=True)
     print("planners/suite_mpc costs f64: " + json.dumps([round(c, 4) for c in sm["cost64"]]),
@@ -1666,7 +1865,10 @@ def main():
           f"to the cent, in {tr['seconds']:.2f} s {tag}", flush=True)
     print(f"tables/mpc_suite: scenarios 0 and 1 (two groups), 24 steps, costs "
           f"{json.dumps([round(c, 4) for c in tm['costs']])}, report parsed back, in "
-          f"{tm['seconds']:.2f} s ({tm['ms_per_hour']:.1f} ms per hour) {tag}", flush=True)
+          f"{tm['seconds']:.2f} s ({tm['ms_per_hour']:.1f} ms per hour), "
+          f"{tm['kernel_solves']} box_ipm_kernel launches {tag}", flush=True)
+    _check(tm["kernel_solves"] > 0, "tables/mpc_suite: no box_ipm_kernel launch")
+    box_launches += tm["kernel_solves"]
     st = phase_structure(device)
     for line in st["lines"]:
         print(f"examples/scenario0_structure | {line}", flush=True)
@@ -1721,6 +1923,18 @@ def main():
           f"{sweep['full_year_cost']:.2f} {tag}", flush=True)
     print("kernel rbc_rollout variant of scenarios 0-24: " + json.dumps(kvp["variants"]),
           flush=True)
+    box = phase_box_ipm(device, sm["box_solvers"])
+    for name, r in box.items():
+        print(f"kernel box_ipm {name}: {r['lps']} LPs of the planner's first hours, objectives "
+              f"within {r['kernel_obj_gap']:.3e} of HiGHS's (op path {r['op_obj_gap']:.3e}; "
+              f"kernel-op {r['kernel_vs_op']:.3e}, limit twice the op path's), residual "
+              f"{r['residual']:.3e} (op {r['residual_op']:.3e}, limit "
+              f"{r['residual_limit']:.0e}), rejected steps "
+              f"{r['rejected']} (op {r['rejected_op']}); at {r['problems']} problems x "
+              f"{r['iters']} iterations, refine {r['refine']}: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_ms'] / r['ms']:.2%} of it reached) {tag}", flush=True)
+    hour = {k: sum(r[k] for r in box.values()) for k in ("ms", "plain_ms", "bound_ms")}
 
     print(json.dumps({"kernels": [{
         "name": "rbc_rollout",
@@ -1732,6 +1946,18 @@ def main():
         "ms": kvp["ms"],
         "plain_ms": kvp["plain_ms"],
         "bound_ms": kvp["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,   # no single PyTorch call computes this function
+    }, {
+        "name": "box_ipm_kernel",
+        "route": "cuda",
+        "source": "pymgrid_tpu_torch/csrc/box_ipm.cu",
+        "replaces": None,     # XLA ran the JAX package's box IPM: no TPU kernel
+        "launches": box_launches,
+        "max_rel_err": max(r["kernel_vs_op"] for r in box.values()),
+        "ms": hour["ms"],     # the planner's hour: relaxation, chunk, final re-solve
+        "plain_ms": hour["plain_ms"],
+        "bound_ms": hour["bound_ms"],
         "bound_by": "operations",
         "library_ms": None,   # no single PyTorch call computes this function
     }]}), flush=True)

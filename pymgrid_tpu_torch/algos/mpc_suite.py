@@ -24,10 +24,14 @@ pattern enumeration), ``pymgrid.lp.ipm`` (every interior-point solve),
 ``pymgrid.mpc.act`` (the first-step controls and their balance repair) and
 ``pymgrid.engine.step`` inside it.
 
-On a CUDA device each interior-point solve shape is recorded once as a CUDA
-graph and replayed (``cuda_graph`` of :mod:`pymgrid_tpu_torch.core.lp`):
-an hour launches three graphs for its 130 iterations, bitwise as the eager
-solves, so the device and not the host's speed sets the pace.
+On a CUDA device in float32 each box interior-point solve runs all its
+iterations in one launch of the hand-written kernel ``csrc/box_ipm.cu``
+(one thread block a problem; :mod:`pymgrid_tpu_torch.core.lp`), and each
+solve shape is recorded once as a CUDA graph of that launch and the ops
+around it and replayed (``cuda_graph``), bitwise as the eager solves: an
+hour launches three graphs for its 130 iterations.  The slack form
+(``solver_kind="ipm"``) and float64 run their iterations op by op inside
+the graphs.
 """
 import numpy as np
 import torch
@@ -112,7 +116,7 @@ class SuiteMPC:
             raise ValueError(f"solver_kind must be 'box' or 'ipm', got {solver_kind!r}")
         # on a CUDA device each solve shape (relaxation, pattern chunk, final
         # re-solve) is recorded once and replayed: the host launches one graph
-        # for the ~290 kernels of each of an hour's 130 iterations
+        # a solve (the box IPM's iterations one kernel inside it, in float32)
         kw = dict(dtype=numpy_dtype(dtype), x_scale=tpl.x_scale_np,
                   matmul_precision=matmul_precision, device=self.device, cuda_graph=True)
         if solver_kind == "ipm":

@@ -32,9 +32,18 @@ over iterations becomes a Python loop of eager ops; nothing inside a solve waits
 * Under a profiler capture every interior-point solve is the span
   ``pymgrid.lp.ipm`` and adds its problems to the counter
   ``pymgrid.lp.problems`` and its iterations to ``pymgrid.lp.iterations``.
+* The box IPM on a CUDA device in float32 runs all its iterations in one
+  launch of the hand-written kernel ``csrc/box_ipm.cu`` (one thread block a
+  problem, :mod:`pymgrid_tpu_torch.ops.box_ipm`) wherever a problem fits a
+  block's shared memory (:func:`_box_kernel_runs`), and counts each such
+  solve in ``pymgrid.lp.kernel_solves``; the bounds, scalings and start
+  before it and the outputs after it stay PyTorch ops.  Elsewhere (the CPU,
+  float64, larger problems) it runs op by op, ~290 small kernels an
+  iteration, and that loop is the reference the card tests hold the kernel
+  to.  The slack-form IPM always runs op by op.
 * ``cuda_graph=True`` on a CUDA device records each input shape's solve
-  once and replays it (:func:`_replayed`): one launch for the ~290 kernels
-  of every iteration, the same kernels on the same inputs.
+  once and replays it (:func:`_replayed`): one launch for all of its
+  kernels, the same kernels on the same inputs.
 
 Reductions and LAPACK run in another order than XLA's, so the solvers agree
 with the JAX package to a tolerance, not bitwise.
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 
 from pymgrid_tpu_torch._device import resolve_device, torch_dtype
+from pymgrid_tpu_torch.ops import box_ipm
 from pymgrid_tpu_torch.utils import cuda_graph as graphs
 from pymgrid_tpu_torch.utils.profiling import count, span
 
@@ -135,6 +145,14 @@ def _replayed(solve):
         return x.clone(), {k: v.clone() for k, v in info.items()}
 
     return run
+
+
+def _box_kernel_runs(device, dtype, me, n0):
+    """Whether the box IPM's solves run as one launch of the hand-written
+    kernel (``ops/box_ipm.py``): on a CUDA device, in float32, where one
+    thread block holds an ``me x n0`` problem.  Elsewhere the op-by-op loop
+    runs."""
+    return device.type == "cuda" and dtype == torch.float32 and box_ipm.fits(me, n0)
 
 
 def _stack_inputs(K_eq, K_in, x_scale):
@@ -394,7 +412,10 @@ def make_batched_box_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64,
     static row -> variable map with one ``scatter_reduce`` (``amin`` for upper
     and ``amax`` for lower bounds) over all ``(k, S)`` problems.  Degenerate
     boxes are pinned at ``lo`` and masked out of the barrier, and the result
-    is clipped to the exact bounds, as in the JAX solver."""
+    is clipped to the exact bounds, as in the JAX solver.  On a CUDA device
+    in float32 the iterations run in the hand-written kernel where the
+    problem fits (:func:`_box_kernel_runs`); the library is built and loaded
+    here, before the first solve."""
     if newton_refine is None:
         newton_refine = 0 if np.dtype(dtype) == np.float64 else 1
     device, dt = resolve_device(device), torch_dtype(dtype)
@@ -423,6 +444,8 @@ def make_batched_box_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64,
     A_np = A_np * row_scale[:, :, None]
 
     A = _as(A_np, dt, device)                                  # (S, me, n0)
+    kernel = (box_ipm.BoxIpmKernel(A, iters, newton_refine)
+              if _box_kernel_runs(device, dt, me, n0) else None)
     row_scale_t = _as(row_scale, dt, device)
     col_scale_t = _as(col_scale, dt, device)
     var_of_row_t = torch.as_tensor(var_of_row, device=device)  # (S, mi) int64
@@ -457,6 +480,8 @@ def make_batched_box_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64,
         with span("pymgrid.lp.ipm"):
             count("pymgrid.lp.problems", len(c))
             count("pymgrid.lp.iterations", iters)
+            if kernel is not None:
+                count("pymgrid.lp.kernel_solves", 1)
             c, b, h = (_as(v, dt, device) for v in (c, b, h))
             with _matmul_precision(matmul_precision, device):
                 return run(c, b, h)
@@ -498,6 +523,24 @@ def make_batched_box_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64,
             r_c = free * (mm_A(yv) + zv - wv - cn)
             return (mean_compl(sv, tv, zv, wv) + r_b.abs().amax(dim=2, keepdim=True)
                     + r_c.abs().amax(dim=2, keepdim=True))
+
+        def finish(s, t, z, w, rejected):
+            """The outputs from the best iterate."""
+            x = torch.minimum(torch.maximum(x_of(s), lo), hi)  # exact (incl. degenerate) bounds
+            r = (mm_AT(x) - bb).abs().amax(dim=2).reshape(B)
+            x_out = (x * col_scale_t).reshape(B, n0)
+            obj = (c * x_out).sum(dim=1)
+            gap = mean_compl(s, t, z, w).reshape(B)
+            return x_out, {"residual": r, "objective": obj, "gap": gap,
+                           "rejected": rejected.reshape(B)}
+
+        if kernel is not None:
+            # every iteration below in one launch: the best s, t, z, w out
+            flat = lambda v: v.reshape(B, v.shape[-1])  # noqa: E731
+            best, rejected = kernel(flat(bb), flat(cn), flat(lo), flat(free), flat(s), flat(t),
+                                    flat(torch.cat([scale, reg, two_n], dim=2)))
+            s, t, z, w = best.view(k, S, 4, n).unbind(2)
+            return finish(s, t, z, w, rejected)
 
         best = (s, t, z, w, y, torch.full((k, S, 1), float("inf"), dtype=dt, device=device))
         rejected = torch.zeros((k, S, 1), dtype=torch.int32, device=device)
@@ -555,14 +598,7 @@ def make_batched_box_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64,
             best = tuple(torch.where(improved, nv, ov)
                          for nv, ov in zip((s, t, z, w, y, m_new), best))
         s, t, z, w, _, _ = best
-
-        x = torch.minimum(torch.maximum(x_of(s), lo), hi)  # exact (incl. degenerate) bounds
-        r = (mm_AT(x) - bb).abs().amax(dim=2).reshape(B)
-        x_out = (x * col_scale_t).reshape(B, n0)
-        obj = (c * x_out).sum(dim=1)
-        gap = mean_compl(s, t, z, w).reshape(B)
-        return x_out, {"residual": r, "objective": obj, "gap": gap,
-                       "rejected": rejected.reshape(B)}
+        return finish(s, t, z, w, rejected)
 
     run = _replayed(_solve) if cuda_graph and graphs.available(device) else _solve
     return solve

@@ -82,6 +82,18 @@ def test_suite_mpc_phase_cpu():
     assert out["ms_per_hour32"] > 0
 
 
+def test_box_ipm_phase_cpu():
+    """The box IPM's phase on the LPs of the float32 planner's 2 hours over
+    scenarios 0-2: on the CPU both sides run the op path (no kernel solve is
+    counted), HiGHS's limits hold, and no time is taken."""
+    sm = chip_smoke.phase_suite_mpc("cpu", n_scenarios=3, n_steps=2, held=(0, 1))
+    assert sm["kernel_solves"] == 0 and sm["box_solves"] == 6
+    out = chip_smoke.phase_box_ipm("cpu", sm["box_solvers"])
+    assert list(out) == ["relaxation", "chunk", "final"]
+    assert [r["problems"] for r in out.values()] == [3, 24, 3]
+    assert all(r["ms"] is None and r["bound_ms"] > 0 for r in out.values())
+
+
 def test_batched_mpc_phase_cpu():
     """4 float32 replicas and the float64 host-fallback run, 2 steps."""
     out = chip_smoke.phase_batched_mpc("cpu", batch=4, n_steps=3, n_steps32=2)

@@ -242,3 +242,49 @@ def test_solvers_need_an_explicit_device():
         else:
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 factory(K_eq, np.eye(30))
+
+
+@pytest.mark.parametrize("device, dtype, me, n0, runs", [
+    ("cuda", torch.float32, 48, 192, True),      # the MPC cell's solve shapes
+    ("cuda", torch.float32, 1, 2, True),
+    ("cpu", torch.float32, 48, 192, False),
+    ("cuda", torch.float64, 48, 192, False),
+    ("cuda", torch.float32, 128, 400, False),    # the block's layout past 227 KB
+    ("cuda", torch.float32, 170, 1, False),      # M and its factor alone past 227 KB
+])
+def test_box_kernel_dispatch_by_shape(device, dtype, me, n0, runs):
+    """The box IPM takes the hand-written kernel by what it observes: a CUDA
+    device, float32, and a problem whose shared-memory layout fits one block;
+    the op-by-op loop otherwise.  Decided from shapes alone, with no card."""
+    from pymgrid_tpu_torch.ops import box_ipm
+
+    assert tlp._box_kernel_runs(torch.device(device), dtype, me, n0) is runs
+    if device == "cuda" and dtype == torch.float32:
+        assert box_ipm.fits(me, n0) is runs
+        assert (box_ipm.smem_bytes(me, n0) <= box_ipm.SMEM_LIMIT) is runs
+
+
+def test_box_kernel_layout_of_the_cell():
+    """The cell's 48 x 192 problem takes 113,728 bytes of shared memory a
+    block (A with rows padded to 193, A' with rows padded to 52, M and its
+    factor padded to 49, 21 vectors of 192 and 8 of 48), so two blocks fit
+    an SM's 227 KB: the pattern chunk's 200 problems run at once."""
+    from pymgrid_tpu_torch.ops import box_ipm
+
+    floats = 48 * 193 + 192 * 52 + 2 * 48 * 49 + 21 * 192 + 8 * 48 + 64
+    assert box_ipm.smem_bytes(48, 192) == 4 * floats == 113_728
+    assert 2 * box_ipm.smem_bytes(48, 192) <= box_ipm.SMEM_LIMIT
+
+
+def test_box_kernel_counter_silent_on_the_cpu(tmp_path):
+    """``pymgrid.lp.kernel_solves`` counts solves the kernel ran: none on the
+    CPU, where the box IPM's problems and iterations are still counted."""
+    from pymgrid_tpu_torch.utils.profiling import span_totals, trace
+
+    K_eq, _, c, b, _ = _random_lps(B=3)
+    solve = tlp.make_batched_box_ipm_solver(K_eq, np.eye(30), iters=5, dtype=np.float32,
+                                            device="cpu")
+    with trace(str(tmp_path), device="cpu"):
+        solve(c, b, np.full((3, 30), 5.0))
+    assert span_totals()["counters"] == {"pymgrid.lp.problems": 3,
+                                         "pymgrid.lp.iterations": 5}
